@@ -29,12 +29,16 @@ def predict_kernels(model: CostModel, model_cfg: CostModelConfig, graphs,
     """Predict scores for a list of KernelGraphs (batched inference), on
     the model's device.
 
-    dense  — fixed-size chunks padded to `chunk` graphs × `max_nodes`
-             nodes.
-    sparse — kernels packed into flat buffers of ≤ `node_budget` total
-             nodes (default 8 × max_nodes) with pow2-bucketed capacities.
-             Kernels beyond the budget still score (oversized singleton
-             packs).
+    dense     — fixed-size chunks padded to `chunk` graphs × `max_nodes`
+                nodes.
+    sparse    — kernels packed into flat buffers of ≤ `node_budget` total
+                nodes (default 8 × max_nodes) with pow2-bucketed
+                capacities. Kernels beyond the budget still score
+                (oversized singleton packs).
+    segmented — whole-program graphs of any size: each graph segmented
+                into ≤ `node_budget` blocks (default 8 × max_nodes) and
+                reassembled before readout; chunks of `chunk` graphs per
+                device batch.
 
     `adjacency` defaults to `model_cfg.adjacency`. This is the direct,
     uncached path; `repro_torch.serving.CostModelService` adds the
@@ -42,9 +46,6 @@ def predict_kernels(model: CostModel, model_cfg: CostModelConfig, graphs,
     """
     if adjacency is None:
         adjacency = model_cfg.adjacency
-    if adjacency not in ("dense", "sparse"):
-        raise NotImplementedError(
-            f"adjacency={adjacency!r} is not ported yet (dense | sparse)")
     predict = predict_fn or make_predict_fn(model_cfg)
     if not len(graphs):
         return np.zeros((0,), np.float32)
@@ -56,6 +57,16 @@ def predict_kernels(model: CostModel, model_cfg: CostModelConfig, graphs,
             preds = np.asarray(predict(model, enc))
             out[idx] = preds[:len(idx)]
         return out
+    if adjacency == "segmented":
+        from repro_torch.data.batching import encode_segmented
+        budget = node_budget or 8 * max_nodes
+        out = []
+        for i in range(0, len(graphs), chunk):
+            part = graphs[i:i + chunk]
+            enc = encode_segmented(part, budget, normalizer)
+            preds = np.asarray(predict(model, enc))
+            out.append(preds[:len(part)])
+        return np.concatenate(out)
     out = []
     for i in range(0, len(graphs), chunk):
         part = graphs[i:i + chunk]

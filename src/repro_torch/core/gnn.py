@@ -15,7 +15,10 @@ Two aggregation backends share one parameter tree:
 On CPU tensors the kernel wrappers run their plain PyTorch versions.
 Both layer-stack layouts of the reference are accepted: unrolled
 (`{"layers": [layer_0, ...]}`) and stacked (`{"stacked": tree}`, leaves
-with a leading layer axis), run as one Python loop over the layers.
+with a leading layer axis), run as one Python loop over the layers. A
+leaf may be an int8 `QuantizedLeaf`: the layer loop slices its `q` and
+`scale` alike, and the kernel-backed sparse hop feeds int8 f2 weights to
+the kernel's int8 variant.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.kernels.segment_aggregate import (
     segment_aggregate,
 )
 from repro_torch.nn.core import dense_apply, dense_init, l2_normalize
+from repro_torch.quant.scale import QuantizedLeaf, leaf_f32
 
 
 # ----------------------------------------------------------------------------
@@ -38,6 +42,8 @@ def _tree_map(fn, tree):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, QuantizedLeaf):
+        return QuantizedLeaf(fn(tree.q), fn(tree.scale))
     return fn(tree)
 
 
@@ -205,22 +211,32 @@ def sage_layer_apply_sparse(params: dict, eps: torch.Tensor,
     return _sage_finish(params, parts, node_mask)
 
 
+def _f2_qs(leaf: dict):
+    """(weights, per-output-channel scale) of one f2 module for the fused
+    kernel: int8 q + its scale for a `QuantizedLeaf`, the f32 weight with
+    unit scales otherwise (the kernel's dequant is then a no-op
+    multiply)."""
+    w = leaf["w"]
+    if isinstance(w, QuantizedLeaf):
+        return w.q, w.scale.reshape(1, -1)
+    return w, torch.ones((1, w.shape[-1]), dtype=torch.float32,
+                         device=w.device)
+
+
 def sage_layer_apply_sparse_q(params: dict, eps: torch.Tensor,
                               edges_in: EdgeCSR, edges_out: EdgeCSR,
                               node_mask: torch.Tensor, *,
                               aggregator: str = "mean",
                               directed: bool = True) -> torch.Tensor:
     """`sage_layer_apply_sparse` with the transform+aggregate fused into
-    the `segment_aggregate` kernel. fp32 f2 weights with unit scales (the
-    reference's `_f2_qs` for plain weights); int8 weights are not ported
-    yet. `edges_in` groups the edges by destination, `edges_out` by
-    source."""
+    the `segment_aggregate` kernel. The f2 weights may be int8
+    `QuantizedLeaf`s (they reach the kernel as int8 with their scales) or
+    plain f32; f3 is dequantized outside the kernel either way.
+    `edges_in` groups the edges by destination, `edges_out` by source."""
     mean = aggregator == "mean"
 
     def fused(leaf, edges):
-        w = leaf["w"]
-        scale = torch.ones((w.shape[-1],), dtype=torch.float32,
-                           device=w.device)
+        w, scale = _f2_qs(leaf)
         return segment_aggregate(eps, w, scale, edges, node_mask,
                                  act="relu", mean=mean)
 
@@ -231,7 +247,8 @@ def sage_layer_apply_sparse_q(params: dict, eps: torch.Tensor,
     else:
         agg_out = fused(params["f2_in"], edges_out)
         parts[1] = 0.5 * (agg_in + agg_out)
-    return _sage_finish(params, parts, node_mask)
+    f3 = {"f3": {"w": leaf_f32(params["f3"]["w"])}}
+    return _sage_finish(f3, parts, node_mask)
 
 
 def sage_apply_sparse(params: dict, eps: torch.Tensor,

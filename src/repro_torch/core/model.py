@@ -13,12 +13,22 @@ parameter tree's paths (`opcode_embed.table`, `gnn.layers.0.f2_in.w`,
 `gnn.stacked.f3.w`, ...); `cost_model_apply` is a plain function on the
 nested parameter dict `CostModel.tree()` returns. Inference only: the
 forward runs under `torch.inference_mode()` in `core.evaluate`, and
-dropout is the identity. Not ported yet (raise `NotImplementedError`):
-GAT, the LSTM reduction, `precision="int8"` and `SegmentedGraphBatch`.
+dropout is the identity.
+
+Batches: `GraphBatch` (dense), `SparseGraphBatch` (packed) and
+`SegmentedGraphBatch` (whole programs cut into blocks, reassembled
+before the readout). Under ``precision="int8"`` the tree holds
+`quant.scale.QuantizedLeaf`s (a `CostModel` keeps their `q` and `scale`
+as buffers, keys `….w.q` / `….w.scale`); they are dequantized per
+forward, except that the GNN's f2 weights stay int8 into the
+`segment_aggregate` kernel on the sparse and segmented layouts with the
+kernels on. Not ported yet (raise `NotImplementedError`): GAT and the
+LSTM reduction.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from dataclasses import dataclass, asdict
 
 import numpy as np
@@ -38,6 +48,7 @@ from repro_torch.nn.core import (
     mlp_apply,
     mlp_init,
 )
+from repro_torch.quant.scale import QuantizedLeaf, dequantize_tree
 
 
 @dataclass
@@ -94,9 +105,21 @@ def _not_ported(what: str) -> NotImplementedError:
 # ----------------------------------------------------------------------------
 # Parameters: nested dict tree <-> nn.Module
 # ----------------------------------------------------------------------------
+class _QuantizedLeafModule(nn.Module):
+    """One `QuantizedLeaf` inside a `CostModel`: int8 `q` and f32 `scale`
+    as buffers (not parameters: int8 cannot require grad)."""
+
+    def __init__(self, leaf: QuantizedLeaf):
+        super().__init__()
+        self.register_buffer("q", leaf.q)
+        self.register_buffer("scale", leaf.scale)
+
+
 def _fill(mod: nn.Module, tree: dict) -> nn.Module:
     for k, v in tree.items():
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, QuantizedLeaf):
+            mod.add_module(k, _QuantizedLeafModule(v))
+        elif isinstance(v, torch.Tensor):
             mod.register_parameter(k, nn.Parameter(v, requires_grad=False))
         elif isinstance(v, (list, tuple)):
             mod.add_module(k, nn.ModuleList([_fill(nn.Module(), t)
@@ -107,6 +130,8 @@ def _fill(mod: nn.Module, tree: dict) -> nn.Module:
 
 
 def _module_to_tree(mod: nn.Module):
+    if isinstance(mod, _QuantizedLeafModule):
+        return QuantizedLeaf(mod.q, mod.scale)
     if isinstance(mod, nn.ModuleList):
         return [_module_to_tree(m) for m in mod]
     tree = {k: p for k, p in mod.named_parameters(recurse=False)}
@@ -128,7 +153,9 @@ class CostModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        # an int8 model may hold its every weight as buffers
+        return next(itertools.chain(self.parameters(),
+                                    self.buffers())).device
 
 
 def cost_model_init(gen: torch.Generator, cfg: CostModelConfig, *,
@@ -177,13 +204,15 @@ def cost_model_init(gen: torch.Generator, cfg: CostModelConfig, *,
 # Batches
 # ----------------------------------------------------------------------------
 def batch_to_device(batch, device: torch.device):
-    """A `GraphBatch`/`SparseGraphBatch` of numpy arrays → the same
-    dataclass holding tensors on `device` (one copy per array)."""
-    if isinstance(batch, F.SegmentedGraphBatch):
-        raise _not_ported("the segmented layout (SegmentedGraphBatch)")
+    """A `GraphBatch`/`SparseGraphBatch`/`SegmentedGraphBatch` of numpy
+    arrays → the same dataclass holding tensors on `device` (one copy per
+    array; a segmented batch's `inner` batch too)."""
+    def move(a):
+        if dataclasses.is_dataclass(a):
+            return batch_to_device(a, device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return dataclasses.replace(batch, **{
-        f.name: torch.from_numpy(np.ascontiguousarray(
-            getattr(batch, f.name))).to(device)
+        f.name: move(getattr(batch, f.name))
         for f in dataclasses.fields(batch)})
 
 
@@ -199,13 +228,9 @@ def _mask_kernel_feats(cfg: CostModelConfig,
     return kfeats
 
 
-def _check_supported(cfg: CostModelConfig, batch) -> None:
-    if cfg.precision == "int8":
-        raise _not_ported("precision='int8'")
+def _check_supported(cfg: CostModelConfig) -> None:
     if cfg.gnn == "gat":
         raise _not_ported("gnn='gat'")
-    if isinstance(batch, F.SegmentedGraphBatch):
-        raise _not_ported("the segmented layout (SegmentedGraphBatch)")
 
 
 # ----------------------------------------------------------------------------
@@ -213,9 +238,22 @@ def _check_supported(cfg: CostModelConfig, batch) -> None:
 # ----------------------------------------------------------------------------
 def cost_model_apply(params: dict, cfg: CostModelConfig,
                      batch) -> torch.Tensor:
-    """batch: `GraphBatch` or `SparseGraphBatch` holding tensors (see
-    `batch_to_device`). Returns predictions [B] (one per graph slot)."""
-    _check_supported(cfg, batch)
+    """batch: `GraphBatch`, `SparseGraphBatch` or `SegmentedGraphBatch`
+    holding tensors (see `batch_to_device`). Returns predictions [B] (one
+    per graph slot)."""
+    _check_supported(cfg)
+    if cfg.precision == "int8":
+        # sparse/segmented + kernels: the GNN tree stays quantized, its f2
+        # weights feed the segment_aggregate kernel as int8; everything
+        # else (and the dense layout entirely) decodes here
+        keep_gnn = (cfg.use_pallas_aggregate and "gnn" in params
+                    and not isinstance(batch, F.GraphBatch))
+        gnn_q = params["gnn"] if keep_gnn else None
+        params = dequantize_tree(params)
+        if gnn_q is not None:
+            params = dict(params, gnn=gnn_q)
+    if isinstance(batch, F.SegmentedGraphBatch):
+        return _cost_model_apply_segmented(params, cfg, batch)
     if isinstance(batch, F.SparseGraphBatch):
         eps = _embed_sparse(params, cfg, batch)
         return _readout_sparse(params, cfg, eps, batch.node_mask,
@@ -275,6 +313,23 @@ def _embed_sparse(params: dict, cfg: CostModelConfig,
                                   directed=cfg.directed,
                                   use_kernel=cfg.use_pallas_aggregate)
     return eps
+
+
+def _cost_model_apply_segmented(params: dict, cfg: CostModelConfig,
+                                batch) -> torch.Tensor:
+    """Whole-program forward: the per-node half on the inner segment
+    batch, owned-node embeddings scattered back into whole-graph node
+    order, then the readout per original graph. Graphs that fit one
+    segment go through exactly as on the sparse path."""
+    eps_in = _embed_sparse(params, cfg, batch.inner)       # [M_inner, D]
+    M = batch.num_nodes
+    # halo + padding rows target the dummy slot M and are dropped; owned
+    # slots are written exactly once (owned sets partition the graph)
+    buf = eps_in.new_zeros((M + 1, eps_in.shape[-1]))
+    buf[batch.scatter_idx.long()] = eps_in
+    return _readout_sparse(params, cfg, buf[:M], batch.node_mask,
+                           batch.graph_ids, batch.kernel_feats,
+                           batch.gather_idx, batch.gather_mask)
 
 
 def _readout_sparse(params: dict, cfg: CostModelConfig, eps: torch.Tensor,

@@ -21,6 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
+import numpy as np
+
 from repro_torch.core import features as F
 from repro_torch.core.features import FeatureNormalizer, SparseGraphBatch
 from repro_torch.core.graph import KernelGraph
@@ -90,7 +92,7 @@ def pack_graphs(graphs: Sequence[KernelGraph], node_budget: int,
 
     * ``"error"`` (default) — raise a ValueError naming the graph and the
       budget. Callers that can segment should catch this upstream by
-      routing big graphs through `repro.data.segmentation` /
+      routing big graphs through `repro_torch.data.segmentation` /
       `encode_segmented` instead.
     * ``"singleton"`` — give the graph its own oversized singleton pack
       and let the bucket ladder absorb it (the historical behavior;
@@ -107,7 +109,7 @@ def pack_graphs(graphs: Sequence[KernelGraph], node_budget: int,
     >>> pack_graphs(gs, node_budget=2)
     Traceback (most recent call last):
         ...
-    ValueError: graph 0 ('random_5_5', 5 nodes) exceeds node_budget=2; segment it (repro.data.segmentation) or pass oversized='singleton'
+    ValueError: graph 0 ('random_5_5', 5 nodes) exceeds node_budget=2; segment it (repro_torch.data.segmentation) or pass oversized='singleton'
     """
     if oversized not in ("error", "singleton"):
         raise ValueError(f"unknown oversized policy {oversized!r}")
@@ -117,7 +119,7 @@ def pack_graphs(graphs: Sequence[KernelGraph], node_budget: int,
                 raise ValueError(
                     f"graph {i} ({g.name!r}, {g.num_nodes} nodes) exceeds "
                     f"node_budget={node_budget}; segment it "
-                    f"(repro.data.segmentation) or pass "
+                    f"(repro_torch.data.segmentation) or pass "
                     f"oversized='singleton'")
     order = sorted(range(len(graphs)),
                    key=lambda i: (-graphs[i].num_nodes, i))
@@ -174,3 +176,90 @@ def iter_packed_batches(graphs: Sequence[KernelGraph], node_budget: int,
         part = [graphs[i] for i in pack]
         yield encode_packed(part, normalizer,
                             include_static_perf=include_static_perf), pack
+
+
+def encode_segmented(graphs: Sequence[KernelGraph], node_budget: int,
+                     normalizer: FeatureNormalizer | None = None,
+                     *, include_static_perf: bool = True
+                     ) -> "F.SegmentedGraphBatch":
+    """Encode whole-program graphs of *any* size into one
+    `features.SegmentedGraphBatch` (DESIGN.md §12).
+
+    Each graph is split by `segmentation.segment_graph` into blocks of at
+    most `node_budget` nodes (owned + halo); all blocks of all graphs are
+    packed into one inner `SparseGraphBatch` through the ordinary bucket
+    ladder, and the outer arrays reassemble owned-node embeddings into
+    whole-graph node order for the readout. Graphs that fit the budget
+    take the identity path: their inner slots are bit-identical to
+    `encode_packed(graphs)` on the same list.
+
+    >>> from repro_torch.data.synthetic import random_kernel
+    >>> gs = [random_kernel(40, seed=0), random_kernel(7, seed=1)]
+    >>> sb = encode_segmented(gs, node_budget=16)
+    >>> sb.batch_size, int(sb.graph_mask.sum())
+    (2, 2)
+    >>> int(sb.node_mask.sum())          # outer buffer holds 40 + 7 nodes
+    47
+    """
+    from repro_torch.data.segmentation import segment_graph
+
+    if not graphs:
+        raise ValueError("empty graph list")
+    segs = [segment_graph(g, node_budget) for g in graphs]
+    parts = [s.graph for sg in segs for s in sg.segments]
+    inner = encode_packed(parts, normalizer,
+                          include_static_perf=include_static_perf)
+
+    n_real = sum(g.num_nodes for g in graphs)
+    M = round_up_pow2(n_real, 32)
+    # outer graph capacity stays EXACT (like the sparse samplers): the
+    # trainer's losses normalize by slot count, and slot g must be
+    # graphs[g] for every caller
+    G = len(graphs)
+    R = round_up_pow2(max(g.num_nodes for g in graphs), 8)
+
+    # inner nodes -> outer whole-graph slots (halo + padding -> dummy M)
+    scatter = np.full((inner.num_nodes,), M, np.int32)
+    node_mask = np.zeros((M,), np.float32)
+    graph_ids = np.zeros((M,), np.int32)
+    kf = np.zeros((G, F.KERNEL_FEATURE_DIM), np.float32)
+    graph_mask = np.zeros((G,), np.float32)
+    gather_idx = np.full((G, R), M, np.int32)
+    gather_mask = np.zeros((G, R), np.float32)
+
+    slot = 0          # inner graph slot (one per segment, in pack order)
+    n_off = 0         # running node offset inside the inner flat buffer
+    g_off = 0         # running node offset in the outer whole-graph buffer
+    for gi, (g, sg) in enumerate(zip(graphs, segs)):
+        for s in sg.segments:
+            base = n_off                      # segment's inner node offset
+            for loc, glob in zip(s.owned_local, s.owned_global):
+                scatter[base + loc] = g_off + glob
+            n_off += s.graph.num_nodes
+            # whole-graph kernel feats for every segment slot, so the
+            # kernel_feat_mode='node' broadcast sees the *program's*
+            # features, not the block's (identity path: identical values)
+            inner.kernel_feats[slot] = _whole_kernel_feats(
+                g, normalizer, include_static_perf=include_static_perf)
+            slot += 1
+        n = g.num_nodes
+        node_mask[g_off:g_off + n] = 1.0
+        graph_ids[g_off:g_off + n] = gi
+        kf[gi] = _whole_kernel_feats(
+            g, normalizer, include_static_perf=include_static_perf)
+        graph_mask[gi] = 1.0
+        gather_idx[gi, :n] = np.arange(g_off, g_off + n, dtype=np.int32)
+        gather_mask[gi, :n] = 1.0
+        g_off += n
+    return F.SegmentedGraphBatch(inner, scatter, node_mask, graph_ids,
+                                 kf, graph_mask, gather_idx, gather_mask)
+
+
+def _whole_kernel_feats(g: KernelGraph,
+                        normalizer: FeatureNormalizer | None,
+                        *, include_static_perf: bool) -> np.ndarray:
+    kf = F.encode_structural(g).kernel_feats(
+        g.tile_size, include_static_perf=include_static_perf)
+    if normalizer is not None:
+        kf = normalizer.transform_kernel(kf)
+    return kf

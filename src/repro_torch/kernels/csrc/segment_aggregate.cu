@@ -7,26 +7,38 @@
 //     out[d] = sum_{e: scatter[e] = d} edge_mask[e] * msg[gather[e]]
 //     mean:    out[d] /= max(sum_{e: scatter[e] = d} edge_mask[e], 1)
 //
-// What bounds it on an H100: at the serving shapes (M = 32..512 packed
-// nodes, E up to a few hundred edges, D = F = 192) the work is at most
-// ~40 MFLOP and ~1 MB, a few microseconds of the card even at the fp32
-// CUDA-core rate, so the launch itself and the dependent gathers bound
-// it. The TPU kernel's one-hot matmuls for the gather and scatter, and
-// its x8/x128 padding, are MXU idioms and are not carried over.
+// Two entry points, one per weight type of the TPU kernel:
+// segment_aggregate_f32 (f32 w, unit or real scales) and
+// segment_aggregate_i8 (int8 w with per-channel f32 scales: the int8
+// serving path, where w crosses device memory as int8).
+//
+// What bounds it on an H100: at the replay stream's packs (M = 32..512
+// nodes, D = F = 192) the work is at most ~40 MFLOP and ~1 MB, a few
+// microseconds of the card even at the fp32 CUDA-core rate, so the
+// launch itself and the dependent gathers bound it. A whole program
+// segmented at a budget of 512 gives one inner batch of ~10-16k nodes:
+// ~0.7 GFLOP of fp32 multiply-adds (about 0.011 ms at 67 TFLOP/s) over
+// ~25 MB, so the fp32 operations bound it there. The activations are
+// f32, so the product is f32 even for int8 weights. The TPU kernel's
+// one-hot matmuls for the gather and scatter, and its x8/x128 padding,
+// are MXU idioms and are not carried over.
 //
 // Design: two launches on one stream.
 //   1. transform: msg = act((x * nm) @ (w * scale)) into a device scratch
 //      [M, F] (384 KB at M = 512, F = 192, so it stays in the 50 MB L2),
 //      one block per (F-tile of 64, 16 rows), with the shared
-//      register-tile product (row_tile.cuh). The weight is dequantised as it is staged,
-//      so an int8 weight is a second instantiation of the same template.
+//      register-tile product (row_tile.cuh). The weight is dequantised
+//      (w * scale) as it is staged, so the int8 variant is a second
+//      instantiation of the same template.
 //   2. aggregate: one warp per destination walks that destination's edges
 //      in CSR order (edges sorted stably by scatter, built once per batch
 //      and direction by the wrapper, with the masked padding edges left
 //      out: they all point at node 0 and would serialise its warp) and
-//      keeps up to 256 channels in registers. Each output is written once by one warp: no atomics, so
-//      the sum order is fixed and integer-valued inputs give exact results.
+//      keeps up to 256 channels in registers. Each output is written
+//      once by one warp: no atomics, so the sum order is fixed and
+//      integer-valued inputs give exact results.
 #include <cuda_runtime.h>
+#include <cstdint>
 
 #include "row_tile.cuh"
 
@@ -114,11 +126,28 @@ aggregate_kernel(const float* __restrict__ msg,
   }
 }
 
+template <typename WT>
+int launch(const float* x, const WT* w, const float* scale,
+           const float* node_mask, const int* rowptr, const int* src,
+           const float* ew, float* msg, float* out, int M, int D, int F,
+           int relu, int mean, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 tgrid((F + kFT - 1) / kFT, (M + kRows - 1) / kRows);
+  transform_kernel<WT><<<tgrid, kThreads, 0, s>>>(x, w, scale, node_mask,
+                                                   msg, M, D, F, relu);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  aggregate_kernel<<<(M + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      msg, rowptr, src, ew, out, M, F, mean);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x [M,D], w [D,F], scale [F], node_mask [M], rowptr [M+1], src/ew [E]
-// (CSR by destination), msg scratch and out [M,F]: contiguous, on the
-// device. Launches both phases on `stream`; returns cudaGetLastError().
+// x [M,D], w [D,F] (float32 or int8), scale [F], node_mask [M],
+// rowptr [M+1], src/ew [E] (CSR by destination), msg scratch and out
+// [M,F]: contiguous, on the device. Launch both phases on `stream`;
+// return cudaGetLastError().
 extern "C" int segment_aggregate_f32(const float* x, const float* w,
                                      const float* scale,
                                      const float* node_mask,
@@ -126,13 +155,20 @@ extern "C" int segment_aggregate_f32(const float* x, const float* w,
                                      const float* ew, float* msg, float* out,
                                      int M, int D, int F, int relu, int mean,
                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 tgrid((F + kFT - 1) / kFT, (M + kRows - 1) / kRows);
-  transform_kernel<float><<<tgrid, kThreads, 0, s>>>(x, w, scale, node_mask,
-                                                      msg, M, D, F, relu);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  aggregate_kernel<<<(M + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      msg, rowptr, src, ew, out, M, F, mean);
-  return (int)cudaGetLastError();
+  return launch<float>(x, w, scale, node_mask, rowptr, src, ew, msg, out,
+                       M, D, F, relu, mean, stream);
+}
+
+// The int8-weight variant: w is int8 and is dequantised (w * scale[f])
+// as the transform stages it into shared memory, so it crosses device
+// memory at a quarter of the f32 bytes.
+extern "C" int segment_aggregate_i8(const float* x, const int8_t* w,
+                                    const float* scale,
+                                    const float* node_mask,
+                                    const int* rowptr, const int* src,
+                                    const float* ew, float* msg, float* out,
+                                    int M, int D, int F, int relu, int mean,
+                                    void* stream) {
+  return launch<int8_t>(x, w, scale, node_mask, rowptr, src, ew, msg, out,
+                        M, D, F, relu, mean, stream);
 }

@@ -10,10 +10,14 @@ Counterpart of `repro.kernels.segment_aggregate` (the Pallas TPU kernel
 `segment_aggregate` launches the hand-written CUDA kernel
 `csrc/segment_aggregate.cu` for CUDA tensors and runs the plain PyTorch
 version `segment_aggregate_plain` for CPU tensors; any other device
-raises. The kernel walks each destination's edges in CSR order, so the
-caller groups the edges once per batch and direction with `edge_csr`
-and reuses the result across hops. `launches` counts kernel launches
-(one per call: the transform and the aggregation pass).
+raises. The kernel has one entry point per weight type, as the TPU
+kernel has one instantiation per type: `segment_aggregate_f32` for a
+float32 `w` and `segment_aggregate_i8` for an int8 `w` (the int8 serving
+path; `w_scale` holds its per-channel scales). It walks each
+destination's edges in CSR order, so the caller groups the edges once
+per batch and direction with `edge_csr` and reuses the result across
+hops. `launches` and `launches_i8` count the launches of the two
+variants (one per call: the transform and the aggregation pass).
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0
+launches = 0        # float32-weight variant
+launches_i8 = 0     # int8-weight variant
 _ACTS = ("relu", "none")
 
 
@@ -93,8 +98,9 @@ def _lib():
     lib = build.load("segment_aggregate")
     if lib.segment_aggregate_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segment_aggregate_f32.argtypes = [p] * 9 + [i] * 5 + [p]
-        lib.segment_aggregate_f32.restype = i
+        for fn in (lib.segment_aggregate_f32, lib.segment_aggregate_i8):
+            fn.argtypes = [p] * 9 + [i] * 5 + [p]
+            fn.restype = i
     return lib
 
 
@@ -103,7 +109,8 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
                       node_mask: torch.Tensor, *, act: str = "relu",
                       mean: bool = True) -> torch.Tensor:
     """Fused transform+aggregate of one sparse GraphSAGE hop over
-    `edges` (see `edge_csr`). fp32 weights with a per-channel scale."""
+    `edges` (see `edge_csr`). `w` is float32 or int8, with a float32
+    per-channel scale `w_scale` ([F] or [1, F])."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if x.device.type == "cpu":
@@ -113,12 +120,15 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"segment_aggregate runs on cuda or cpu, not "
                          f"{x.device}")
+    if w.dtype not in (torch.float32, torch.int8):
+        raise ValueError(f"segment_aggregate: w must be a contiguous "
+                         f"float32 or int8 tensor, got {w.dtype}")
     M, D = x.shape
     F = w.shape[1]
     E = edges.src.shape[0]
     scale = w_scale.reshape(-1)
     for name, t, shape, dtype in (
-            ("x", x, (M, D), torch.float32), ("w", w, (D, F), torch.float32),
+            ("x", x, (M, D), torch.float32), ("w", w, (D, F), w.dtype),
             ("w_scale", scale, (F,), torch.float32),
             ("node_mask", node_mask, (M,), torch.float32),
             ("rowptr", edges.rowptr, (M + 1,), torch.int32),
@@ -134,7 +144,9 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     msg = torch.empty((M, F), device=x.device, dtype=torch.float32)
     out = torch.empty((M, F), device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.segment_aggregate_f32(
+    int8 = w.dtype == torch.int8
+    fn = lib.segment_aggregate_i8 if int8 else lib.segment_aggregate_f32
+    err = fn(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), node_mask.data_ptr(),
         edges.rowptr.data_ptr(), edges.src.data_ptr(),
         edges.weight.data_ptr(), msg.data_ptr(), out.data_ptr(), M, D, F,
@@ -142,6 +154,9 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     if err:
         raise RuntimeError(f"segment_aggregate launch failed: CUDA error "
                            f"{err}")
-    global launches
-    launches += 1
+    global launches, launches_i8
+    if int8:
+        launches_i8 += 1
+    else:
+        launches += 1
     return out

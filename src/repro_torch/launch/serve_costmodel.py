@@ -22,15 +22,20 @@ Flags (as in the reference, plus --device):
   --node-budget N     sparse pack budget / coalescer flush    (default 8*max_nodes)
   --chunk N           dense chunk width                       (default 128)
   --hidden-dim N      model width (untrained params)          (default 48)
+  --precision P       f32 | int8 serving weights (int8 runs   (default f32)
+                      `repro_torch.quant.quantize_params` on
+                      the init params, calibrated on the
+                      stream's first 4 requests)
   --seed N            corpus/model seed                       (default 0)
   --compare-direct    also time uncached per-request scoring
   --device D          cuda | cpu                              (default cuda)
 
 The GraphSAGE aggregation runs through the hand-written CUDA kernels
-(their plain PyTorch versions on cpu).
+(their plain PyTorch versions on cpu); with --precision int8 the sparse
+hop takes the kernel's int8-weight variant.
 
-Not ported yet, and refused with an error: --precision int8, --listen,
---connect (and their --max-queue, --deadline-ms, --snapshot).
+Not ported yet, and refused with an error: --listen, --connect (and
+their --max-queue, --deadline-ms, --snapshot).
 """
 from __future__ import annotations
 
@@ -45,6 +50,20 @@ import torch
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _maybe_quantize(model, cfg, replay, args):
+    """--precision int8: quantize the weights per channel, calibrating on
+    the stream's first 4 requests; returns the (model, cfg) to serve."""
+    if args.precision != "int8":
+        return model, cfg
+    from repro_torch.quant import quantize_params
+
+    calib = [g for req in replay.requests[:4] for g in req]
+    qm = quantize_params(model, cfg, calib_graphs=calib,
+                         normalizer=replay.normalizer)
+    cfg = qm.serving_config()
+    return qm.model(cfg), cfg
 
 
 def main(argv=None) -> int:
@@ -77,8 +96,6 @@ def main(argv=None) -> int:
         ap.error("--listen/--connect (the socket server and client) are "
                  "not ported to repro_torch yet; use repro.launch."
                  "serve_costmodel")
-    if args.precision != "f32":
-        ap.error("--precision int8 is not ported to repro_torch yet")
 
     from repro_torch.core.device import resolve_device
     from repro_torch.core.evaluate import make_predict_fn, predict_kernels
@@ -99,11 +116,12 @@ def main(argv=None) -> int:
                           use_pallas_aggregate=True)
     model = cost_model_init(torch.Generator().manual_seed(args.seed), cfg,
                             device=device)
+    model, cfg = _maybe_quantize(model, cfg, replay, args)
     predict_fn = make_predict_fn(cfg)
     print(f"replay: {replay.num_kernels} kernels, "
           f"{len(replay.requests)} requests, {replay.num_queries} queries "
           f"({replay.num_unique} unique graphs), adjacency={args.adjacency}, "
-          f"device={device}")
+          f"precision={cfg.precision}, device={device}")
 
     def make_service() -> CostModelService:
         return CostModelService(model, cfg, replay.normalizer,
@@ -118,6 +136,7 @@ def main(argv=None) -> int:
 
     service = make_service()
     graph_aggregate.launches = segment_aggregate.launches = 0
+    segment_aggregate.launches_i8 = 0
     t0 = time.perf_counter()
     preds, _ = run_replay(service.predict_many, replay.requests)
     _sync(device)
@@ -126,7 +145,8 @@ def main(argv=None) -> int:
           f"({dt:.2f}s total)")
     print(service.stats().summary())
     print(f"kernel launches: graph_aggregate={graph_aggregate.launches} "
-          f"segment_aggregate={segment_aggregate.launches}")
+          f"segment_aggregate={segment_aggregate.launches} "
+          f"segment_aggregate_i8={segment_aggregate.launches_i8}")
 
     if args.compare_direct:
         def direct(graphs):

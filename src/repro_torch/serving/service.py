@@ -22,10 +22,11 @@ normalizer) triple — that is what makes content-addressed caching sound:
 with the model fixed, a graph's prediction is a pure function of its
 canonical hash. Train a new model → build a new service.
 
-Both batched-graph representations are supported. The sparse backend packs
-cache misses through the bucketed batcher (pow2 `BucketSpec`s); the dense
-backend pads fixed-size chunks. The segmented backend and int8 weights
-are not ported yet. The
+Three backends: the sparse one packs cache misses through the bucketed
+batcher (pow2 `BucketSpec`s), the dense one pads fixed-size chunks, and
+the segmented one scores whole programs beyond the node budget as
+segmented batches (graphs within it take the sparse path). The model
+may be an f32 `CostModel` or an int8 `QuantizedCostModel`. The
 facade also exposes drop-in scorers for the call sites that used to go
 straight to `core.evaluate` — `tile_scorer()`, `runtime_predictor()`,
 `cost_fn()` — and a `stats()` surface (hit rate, bucket occupancy, flush
@@ -46,7 +47,8 @@ from repro_torch.core.graph import KernelGraph
 from repro_torch.core.evaluate import make_predict_fn
 from repro_torch.core.model import CostModel, CostModelConfig
 from repro_torch.data.batching import BucketSpec, bucket_for, encode_packed, \
-    pack_graphs
+    encode_segmented, pack_graphs
+from repro_torch.quant.quantize import QuantizedCostModel
 from repro_torch.serving.cache import CacheStats, PredictionCache
 from repro_torch.serving.coalescer import RequestCoalescer, Ticket
 
@@ -140,29 +142,30 @@ class CostModelService:
     defaults to `8 * max_nodes`, `chunk` is the dense batch width. Pass
     `predict_fn` to share one predict closure across services.
 
-    `model` is an fp32 `repro_torch.core.model.CostModel`; it is scored on
-    its own device. `precision` is stamped into cache-snapshot meta, as in
-    the reference, so a warm cache of another precision is refused.
+    `model` is a `repro_torch.core.model.CostModel`, scored on its own
+    device, or a `repro_torch.quant.QuantizedCostModel`: the service then
+    serves its int8 tree under the model's embedded serving config
+    (``precision="int8"``; `model_cfg` is only the fallback when none is
+    embedded). `precision` is stamped into cache-snapshot meta, as in the
+    reference, so a warm cache of another precision is refused.
     """
 
-    def __init__(self, model: CostModel, model_cfg: CostModelConfig,
-                 normalizer, *, adjacency: str | None = None,
+    def __init__(self, model: CostModel | QuantizedCostModel,
+                 model_cfg: CostModelConfig | None, normalizer, *,
+                 adjacency: str | None = None,
                  cache_capacity: int = 65536,
                  node_budget: int | None = None, chunk: int = 128,
                  max_nodes: int | None = None, predict_fn=None,
                  include_static_perf: bool = True):
-        if model_cfg.precision != "f32":
-            raise NotImplementedError(
-                "int8 serving is not ported to repro_torch yet")
+        if isinstance(model, QuantizedCostModel):
+            model_cfg = model.serving_config(model_cfg)
+            model = model.model(model_cfg)
         self.model = model
         self.model_cfg = model_cfg
         self.precision = model_cfg.precision
         self.normalizer = normalizer
         self.adjacency = adjacency or model_cfg.adjacency
-        if self.adjacency == "segmented":
-            raise NotImplementedError(
-                "the segmented backend is not ported to repro_torch yet")
-        if self.adjacency not in ("dense", "sparse"):
+        if self.adjacency not in ("dense", "sparse", "segmented"):
             raise ValueError(f"unknown adjacency {self.adjacency!r}")
         self.max_nodes = max_nodes or model_cfg.max_nodes
         self.node_budget = node_budget or 8 * self.max_nodes
@@ -174,6 +177,7 @@ class CostModelService:
         self._order_sensitive = model_cfg.reduction == "lstm"
         self.cache = PredictionCache(cache_capacity)
         score = {"sparse": self._score_sparse,
+                 "segmented": self._score_segmented,
                  "dense": self._score_dense}[self.adjacency]
         self.coalescer = RequestCoalescer(score,
                                           node_budget=self.node_budget,
@@ -208,6 +212,30 @@ class CostModelService:
             use[0] += 1
             use[1] += len(pack)
             use[2] += sum(g.num_nodes for g in part) / spec.node_capacity
+        return out
+
+    def _score_segmented(self, graphs: Sequence[KernelGraph]) -> np.ndarray:
+        """Whole-program miss path: graphs within the node budget ride the
+        ordinary sparse bucket ladder; bigger ones are segmented into
+        ≤ node_budget blocks and reassembled before readout, one giant
+        graph per forward."""
+        out = np.zeros((len(graphs),), np.float32)
+        small = [i for i, g in enumerate(graphs)
+                 if g.num_nodes <= self.node_budget]
+        if small:
+            out[np.asarray(small)] = self._score_sparse(
+                [graphs[i] for i in small])
+        for i, g in enumerate(graphs):
+            if g.num_nodes <= self.node_budget:
+                continue
+            enc = encode_segmented(
+                [g], self.node_budget, self.normalizer,
+                include_static_perf=self.include_static_perf)
+            out[i] = float(np.asarray(self._predict(self.model, enc))[0])
+            use = self._bucket_use.setdefault("segmented", [0, 0, 0.0])
+            use[0] += 1
+            use[1] += 1
+            use[2] += g.num_nodes / enc.num_nodes
         return out
 
     def _score_dense(self, graphs: Sequence[KernelGraph]) -> np.ndarray:

@@ -107,3 +107,83 @@ def test_cost_model_on_card_kernels_match_plain(layout):
         model = cost_model_init(torch.Generator().manual_seed(0), cfg)
         preds.append(make_predict_fn(cfg)(model, batch))
     np.testing.assert_allclose(preds[0], preds[1], rtol=1e-5, atol=1e-5)
+
+
+def _int8_weights(D, F, seed, *, pow2_scale):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(-127, 128, (D, F)).astype(np.int8)
+    scale = (2.0 ** rng.integers(-6, 1, (F,)) if pow2_scale
+             else rng.uniform(1e-3, 2e-2, (F,)))
+    return _t(w), _t(scale.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [True, False], ids=["mean", "sum"])
+def test_segment_aggregate_int8_cuda_kernel_bitexact_on_integers(mean):
+    """The int8-weight entry point: integer x, int8 w and power-of-two
+    scales make every sum exact, so kernel and plain agree bit for bit;
+    only the int8 launch count moves."""
+    _need_card()
+    x, _, _, g, sc, em, nm = (_t(a) for a in _sa_inputs(
+        128, 64, 96, 300, seed=4))
+    w, s = _int8_weights(64, 96, seed=5, pow2_scale=True)
+    edges = sa.edge_csr(g, sc, em, 128)
+    before, before_i8 = sa.launches, sa.launches_i8
+    out = sa.segment_aggregate(x, w, s, edges, nm, mean=mean)
+    assert (sa.launches, sa.launches_i8) == (before, before_i8 + 1)
+    ref = sa.segment_aggregate_plain(x, w, s, g, sc, em, nm, mean=mean)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_segment_aggregate_int8_cuda_kernel_matches_plain():
+    _need_card()
+    rng = np.random.default_rng(6)
+    M, D, F, E = 512, 192, 192, 1024
+    x = _t(rng.normal(0, 1, (M, D)).astype(np.float32))
+    g, sc = (_t(rng.integers(0, M, E).astype(np.int32)) for _ in range(2))
+    em = _t((rng.random(E) < 0.6).astype(np.float32))
+    nm = _t((rng.random(M) < 0.9).astype(np.float32))
+    w, s = _int8_weights(D, F, seed=7, pow2_scale=False)
+    out = sa.segment_aggregate(x, w, s, sa.edge_csr(g, sc, em, M), nm)
+    ref = sa.segment_aggregate_plain(x, w, s, g, sc, em, nm)
+    tol = 1e-5 * float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "sparse", "segmented"])
+def test_int8_cost_model_on_card_kernels_match_plain(layout):
+    """The int8 forward on the card with and without the kernels; on the
+    sparse and segmented layouts the int8 kernel variant runs."""
+    _need_card()
+    from repro_torch.core import features as F
+    from repro_torch.core.evaluate import make_predict_fn
+    from repro_torch.core.model import CostModelConfig, cost_model_init
+    from repro_torch.data.batching import encode_packed, encode_segmented
+    from repro_torch.data.synthetic import random_kernel, whole_model_graph
+    from repro_torch.quant import QuantizedCostModel, quantize_params
+
+    graphs = [random_kernel(n, seed=i) for i, n in enumerate((5, 12, 20))]
+    norm = F.fit_normalizer(graphs)
+    if layout == "dense":
+        batch = F.encode_batch(graphs, 24, norm)
+    elif layout == "sparse":
+        batch = encode_packed(graphs, norm)
+    else:
+        batch = encode_segmented([whole_model_graph(1200, seed=0)] + graphs,
+                                 256, norm)
+    cfg = CostModelConfig(hidden_dim=64, opcode_embed_dim=16, max_nodes=24,
+                          dropout=0.0, adjacency=layout,
+                          reduction="column_wise",
+                          use_pallas_aggregate=True)
+    qm = quantize_params(cost_model_init(torch.Generator().manual_seed(0),
+                                         cfg))
+    preds = []
+    before = sa.launches_i8
+    for kernels in (True, False):
+        q = QuantizedCostModel(qm.params, qm.act_scales,
+                               dict(qm.config, use_pallas_aggregate=kernels))
+        preds.append(make_predict_fn(q.serving_config())(q.model(), batch))
+    assert (sa.launches_i8 > before) == (layout != "dense")
+    np.testing.assert_allclose(preds[0], preds[1], rtol=1e-5, atol=1e-5)

@@ -63,6 +63,8 @@ print(json.dumps({{"mods": mods, "bad": bad}}))
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.model" in out["mods"]
     assert "repro_torch.kernels.segment_aggregate" in out["mods"]
+    assert {"repro_torch.quant.scale", "repro_torch.quant.quantize",
+            "repro_torch.data.segmentation"} <= set(out["mods"])
     assert out["bad"] == []
 
 

@@ -2,7 +2,8 @@
 
 Each plain PyTorch version (what the wrappers run on CPU tensors) is held
 against the Pallas kernel run in interpret mode, as tests/test_kernels.py
-runs it, and against the kernel's `ref.py` oracle. The CUDA kernels
+runs it, and against the kernel's `ref.py` oracle; `segment_aggregate`
+with float32 and with int8 weights. The CUDA kernels
 themselves run only on the card: tests/test_torch_cuda.py compares them
 with the plain versions there.
 """
@@ -124,6 +125,60 @@ def test_segment_aggregate_bitexact_on_integers(mean):
     """Integer-valued inputs make every f32 intermediate exact: the plain
     version, the JAX kernel and the edge-loop oracle agree bit for bit."""
     args = _sa_inputs(32, 16, 24, 96, seed=7, integer=True)
+    got = _port_sa(*args, mean=mean).numpy()
+    jax_out = jax_sa(*(jnp.asarray(a) for a in args), mean=mean,
+                     interpret=True)
+    assert np.array_equal(got, np.asarray(jax_out))
+    assert np.array_equal(got, segment_aggregate_ref(*args, mean=mean))
+
+
+def _int8_weights(D, F, seed, *, pow2_scale=False):
+    """int8 weights with per-channel scales, as `quantize_params` makes
+    them; power-of-two scales keep every product exact."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(-127, 128, (D, F)).astype(np.int8)
+    if pow2_scale:
+        scale = 2.0 ** rng.integers(-6, 1, (1, F))
+    else:
+        scale = rng.uniform(1e-3, 2e-2, (1, F))
+    return w, scale.astype(np.float32)
+
+
+SA_I8_CASES = [
+    # (M, D, F, E, act, mean)
+    (16, 12, 20, 33, "relu", True),
+    (64, 192, 192, 256, "relu", True),
+    (24, 48, 64, 100, "none", False),
+    (32, 32, 128, 64, "relu", False),
+]
+
+
+@pytest.mark.parametrize("case", SA_I8_CASES, ids=str)
+def test_segment_aggregate_int8_plain_matches_jax_kernel_and_ref(case):
+    """int8 weights: the plain version dequantizes `w * w_scale` as the
+    kernel does, and agrees with the JAX kernel's int8 instantiation and
+    the edge-loop oracle."""
+    M, D, F, E, act, mean = case
+    x, _, _, g, sc, em, nm = _sa_inputs(M, D, F, E, seed=M + E + 1)
+    w, scale = _int8_weights(D, F, seed=M + F)
+    args = (x, w, scale, g, sc, em, nm)
+    got = _port_sa(*args, act=act, mean=mean)
+    assert got.shape == (M, F) and got.dtype == torch.float32
+    jax_out = jax_sa(*(jnp.asarray(a) for a in args), act=act, mean=mean,
+                     block_e=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), **TOL)
+    ref = segment_aggregate_ref(*args, act=act, mean=mean)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("mean", [True, False], ids=["mean", "sum"])
+def test_segment_aggregate_int8_bitexact_on_integers(mean):
+    """Integer-valued x, int8 w and power-of-two scales: every product
+    and sum is exact, so all three agree bit for bit."""
+    x, _, _, g, sc, em, nm = _sa_inputs(32, 16, 24, 96, seed=8,
+                                        integer=True)
+    w, scale = _int8_weights(16, 24, seed=9, pow2_scale=True)
+    args = (x, w, scale, g, sc, em, nm)
     got = _port_sa(*args, mean=mean).numpy()
     jax_out = jax_sa(*(jnp.asarray(a) for a in args), mean=mean,
                      interpret=True)

@@ -165,11 +165,6 @@ def test_copied_bucketing_and_packing_agree():
 
 
 def test_unported_options_raise():
-    _, pcfg = _configs(precision="int8")
-    model = cost_model_init(torch.Generator(), _configs()[1], device="cpu")
-    _, pb = _batches("sparse")
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_predict_fn(pcfg)(model, pb)
     with pytest.raises(NotImplementedError, match="gat"):
         cost_model_init(torch.Generator(), _configs(gnn="gat")[1],
                         device="cpu")
@@ -182,7 +177,9 @@ DOCTEST_MODULES = ["repro_torch.core.graph", "repro_torch.core.features",
                    "repro_torch.data.batching", "repro_torch.data.fusion",
                    "repro_torch.serving.cache",
                    "repro_torch.serving.coalescer",
-                   "repro_torch.serving.service"]
+                   "repro_torch.serving.service",
+                   "repro_torch.data.segmentation",
+                   "repro_torch.quant.scale", "repro_torch.quant.quantize"]
 
 
 @pytest.mark.parametrize("module_name", DOCTEST_MODULES)

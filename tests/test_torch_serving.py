@@ -169,7 +169,8 @@ def test_serve_cli_replays_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [["--listen", "127.0.0.1:0"],
                                    ["--connect", "127.0.0.1:1"],
-                                   ["--precision", "int8"]])
+                                   ["--listen", "127.0.0.1:0",
+                                    "--precision", "int8"]])
 def test_serve_cli_refuses_unported_modes(flags, capsys):
     from repro_torch.launch.serve_costmodel import main
     with pytest.raises(SystemExit) as e:
