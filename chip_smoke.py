@@ -31,6 +31,29 @@ Phases, each reported on its own lines; any failure exits non-zero:
              backend (column-wise reduction, budget 512), in f32 and int8,
              each against the kernels off; graphs within the budget score
              as through the sparse service.
+7. zoo-kernels — the LM zoo's kernels against their plain versions:
+             `flash_attention` at h2o-danube-3-4b's layer shape (B=2,
+             S=8192, H=32, KH=8, hd=120, causal, window 4096, bf16), at
+             hd=128, non-causal and in f32 at smaller S, timed beside
+             PyTorch's scaled_dot_product_attention on the same inputs
+             (the yardstick only), each held element by element; at
+             the layer shape, planted faults (window off by one, a key
+             tile left out) must fail that check; `ssd_scan` at
+             Mamba2-2.7b's full shapes (B=2, nc=32, H=80, N=128, P=64),
+             bit-exact.
+8. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
+             weights from seed 0) scores 2 x 8192 tokens through
+             `loss_fn` with the flash kernel (24 launches) and with
+             `chunked_attention`; loss and last-position logits agree
+             within the stated bf16 tolerance; layer 0's attention on
+             the model's own inputs is held against the plain version
+             and `chunked_attention`, and planted faults (output zeroed,
+             window one key tile short) must fail the latter; what the
+             end-to-end limits make of those faults is printed.
+9. lm-serve — the port's serve loop (`repro_torch.launch.serve`) on the
+             same model: batch 4, prompt 512, 64 greedy decode steps;
+             prefill on 511 tokens + decode of token 512 agrees with the
+             forward's last-position logits.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -39,6 +62,7 @@ result. It imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -51,6 +75,7 @@ SRC = os.path.join(ROOT, "src")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 FEATURES = 192            # CostModelConfig().hidden_dim
 DENSE_BATCH = 128         # CostModelService chunk
 SEGMENT_BUDGET = 512      # 8 * CostModelConfig().max_nodes
@@ -64,19 +89,19 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_ms(fn) -> float:
-    """Mean device time of `fn()` over ITERS launches, after WARMUP."""
+def time_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
+    """Mean device time of `fn()` over `iters` launches, after `warmup`."""
     import torch
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
 
 
 def device_profile(fn) -> tuple[dict, float]:
@@ -102,23 +127,49 @@ def _short(kernel_name: str) -> str:
     return name.removeprefix("void ").split("(")[0].split("<")[0][:32]
 
 
-def device_ms(fn) -> tuple[float, str]:
-    """Device time of one `fn()` call: the CUDA kernel time of ITERS calls
-    under the profiler, divided by ITERS (nan when the profiler sees no
-    device activity), and its split by kernel."""
+def device_ms(fn, iters: int = ITERS) -> tuple[float, str]:
+    """Device time of one `fn()` call: the CUDA kernel time of `iters`
+    calls under the profiler, divided by `iters` (nan when the profiler
+    sees no device activity), and its split by kernel with the number of
+    kernel records each. The calls are profiled as the active step after
+    a warm-up step of as many calls (a profile without one missed its
+    first kernel records). The profiler still drops a record now and
+    then; a kernel whose records are not a multiple of `iters` is marked
+    "records lost", and its time then reads low."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     def many():
-        for _ in range(ITERS):
+        for _ in range(iters):
             fn()
-    kernels, _ = device_profile(many)
+        torch.cuda.synchronize()
+    kernels = {}
+
+    def collect(prof):              # the step's own span is no kernel
+        kernels.update({e.key: (e.count, e.self_device_time_total)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.key.startswith("ProfilerStep")})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=collect) as prof:
+        for _ in range(2):
+            many()
+            prof.step()
     total = sum(us for _, us in kernels.values())
-    split = " + ".join(f"{_short(name)} {us / ITERS / 1e3:.4f}"
-                       for name, (_, us) in sorted(kernels.items()))
-    return (total / ITERS / 1e3 if kernels else float("nan")), split
+    split = " + ".join(
+        f"{_short(name)} {us / iters / 1e3:.4f} ({n}x"
+        f"{'' if n % iters == 0 else ', records lost'})"
+        for name, (n, us) in sorted(kernels.items()))
+    return (total / iters / 1e3 if kernels else float("nan")), split
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak_flops: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -380,17 +431,23 @@ def check_segment_aggregate_i8(gen, replay, whole) -> dict:
 
 # --------------------------------------------------------------------- 4
 def _reset_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graph_aggregate as ga
     from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.kernels import ssd_scan as ss
     ga.launches = sa.launches = sa.launches_i8 = 0
+    fa.launches = ss.launches = 0
 
 
 def _launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graph_aggregate as ga
     from repro_torch.kernels import segment_aggregate as sa
+    from repro_torch.kernels import ssd_scan as ss
     return {"graph_aggregate": ga.launches,
             "segment_aggregate": sa.launches,
-            "segment_aggregate_i8": sa.launches_i8}
+            "segment_aggregate_i8": sa.launches_i8,
+            "flash_attention": fa.launches, "ssd_scan": ss.launches}
 
 
 def serve(label, make_service, requests, kernels) -> dict:
@@ -505,6 +562,461 @@ def _agree(label, got, want) -> None:
         raise AssertionError(f"{label}: {err} > {tol}")
 
 
+# --------------------------------------------------------------------- 7
+ARCH = "h2o-danube-3-4b"
+LM_BATCH, LM_SEQ = 2, 8192          # 2 x 8192 tokens: past the 4096 window
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 64
+# Kernel vs. chunked attention in bf16: the two differ where q·scale is
+# rounded (f32 after the cast vs. bf16 before it) and in the order of the
+# f32 sums, so an attention output now and then lands one bf16 ulp
+# (2^-8..2^-7 relative) apart; 24 layers carry that into the logits.
+# Tolerances, set from the card's readings (|Δloss| 1.55e-4, max|Δlogits|
+# 0.074 forward and 0.086 decode at max|logits| 5.6): |Δloss| <= 1e-3
+# and max|Δlogits| <= 0.025 · max|logits| (about 4.5 bf16 ulps at the
+# largest logit). With random weights attention moves the logits little,
+# so the layer check (LAYER_RMS_RTOL) is the one that catches a wrong
+# kernel; the planted faults show what these two catch.
+LM_LOSS_TOL, LM_LOGIT_RTOL = 1e-3, 0.025
+# flash_attention checks: (label, B, S, H, KH, hd, causal, window, dtype,
+# timed calls); the first is h2o-danube-3-4b's layer, the table's row
+FLASH_CASES = (
+    ("layer", LM_BATCH, LM_SEQ, 32, 8, 120, True, 4096, "bfloat16", 5),
+    ("hd128", 2, 2048, 32, 8, 128, True, None, "bfloat16", 10),
+    ("non-causal", 2, 1024, 32, 8, 120, False, None, "bfloat16", 10),
+    ("f32", 1, 1024, 32, 8, 120, True, 256, "float32", 10))
+SSD_SHAPE = (2, 32, 80, 128, 64)    # B, nc, H, N, P: Mamba2-2.7b, 8192 tokens
+# flash_attention vs. its plain version, element by element:
+# |out - ref| <= rtol·|ref| + atol. Both take the same f32 arithmetic and
+# differ only in the order of the f32 sums (~1e-7 relative); in bf16 both
+# round that to bf16, so an element lands at most one bf16 ulp apart,
+# and one ulp is at most 2^-7·|ref|: the limit 2^-6·|ref| is twice that.
+# atol covers elements near 0. In f32, rtol is the reference's own test
+# tolerance and atol 5.6x the largest error seen on the card (8.9e-7).
+FLASH_TOL = {"bfloat16": (2.0 ** -6, 1e-5), "float32": (2e-5, 5e-6)}
+FAULT_TILE = 64                     # keys per tile of the kernel
+# One layer's attention output at the full shape, kernel vs.
+# chunked_attention (the model's path with the flag off), as
+# rms(Δ) / rms(ref): their bf16 rounding of q·scale differs (see above),
+# which gave 0.0031 on random inputs of the layer's scale (my CPU run);
+# a window one key tile short moves it by ~0.09.
+LAYER_RMS_RTOL = 2.0 ** -6
+
+
+def _attn_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
+    """Unmasked (query, key) pairs of one (batch, head)."""
+    import numpy as np
+    q_pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q_pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, q_pos - window + 1) if window else np.zeros(Sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _sdpa_inputs(q, k, v, causal, window):
+    """SDPA's layout: [B, H, S, hd] with the kv heads repeated, and the
+    causal window as a boolean mask (True = attend)."""
+    import torch
+    rep = q.shape[2] // k.shape[2]
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    return (q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous(),
+            mask)
+
+
+def _within(out, ref, rtol, atol) -> tuple[bool, float, float]:
+    """(every |out - ref| <= rtol·|ref| + atol, max_abs_err, the largest
+    |out - ref| / (rtol·|ref| + atol))."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    worst = float((diff / (rtol * ref.abs() + atol)).max())
+    return worst <= 1.0, float(diff.max()), worst
+
+
+def _attention_rows(q, k, v, keep):
+    """The plain version's arithmetic for the query rows `q` over the
+    keys where `keep` [rows, Sk] is True."""
+    import math
+
+    import torch
+    rep = q.shape[2] // k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    s = (qf @ kf.transpose(-1, -2)).masked_fill(~keep, -1e30)
+    return (torch.softmax(s, dim=-1) @ vf).transpose(1, 2).to(q.dtype)
+
+
+def _flash_faults(q, k, v, out, ref, window, rtol, atol) -> None:
+    """Shows that the element-wise check fails a wrong kernel at this
+    shape: the kernel with its window one key off either way, and the
+    last query tile with one key tile inside the window left out."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    caught = []
+    for w in (window - 1, window + 1):
+        ok, err, worst = _within(fa.flash_attention(
+            q, k, v, causal=True, window=w), ref, rtol, atol)
+        caught.append((f"window {w}", ok, err, worst))
+    S = q.shape[1]
+    q_pos = torch.arange(S - FAULT_TILE, S, device=q.device)[:, None]
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    keep = (k_pos <= q_pos) & (q_pos - k_pos < window)
+    rows = (q[:, -FAULT_TILE:], k, v)
+    ok, err, worst = _within(out[:, -FAULT_TILE:],
+                             _attention_rows(*rows, keep), rtol, atol)
+    log(f"[zoo-kernels] flash_attention layer, last query tile vs. the "
+        f"same rows computed apart: max_abs_err={err:.3e} (worst "
+        f"{worst:.3f} of the limit)")
+    if not ok:
+        raise AssertionError("flash_attention: last query tile apart")
+    drop = S - window // 2                     # inside every last row's window
+    drop -= drop % FAULT_TILE
+    keep[:, drop:drop + FAULT_TILE] = False
+    ok, err, worst = _within(out[:, -FAULT_TILE:],
+                             _attention_rows(*rows, keep), rtol, atol)
+    caught.append((f"key tile {drop}..{drop + FAULT_TILE - 1} left out",
+                   ok, err, worst))
+    for label, ok, err, worst in caught:
+        log(f"[zoo-kernels] planted fault, {label}: max_abs_err={err:.3e} "
+            f"({worst:.1f} x the limit): {'MISSED' if ok else 'caught'}")
+        if ok:
+            raise AssertionError(f"flash_attention check misses: {label}")
+
+
+def check_flash_attention() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    row = None
+    for label, B, S, H, KH, hd, causal, window, dt, iters in FLASH_CASES:
+        rtol, atol = FLASH_TOL[dt]
+        dt = getattr(torch, dt)
+        q = torch.randn((B, S, H, hd), generator=gen, device=DEVICE).to(dt)
+        k = torch.randn((B, S, KH, hd), generator=gen, device=DEVICE).to(dt)
+        v = torch.randn((B, S, KH, hd), generator=gen, device=DEVICE).to(dt)
+
+        def run():
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        ok, err, worst = _within(out, ref, rtol, atol)
+        sq, sk, sv, mask = _sdpa_inputs(q, k, v, causal, window)
+
+        def library():
+            return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+        lib_err = float((library().transpose(1, 2).float()
+                         - ref.float()).abs().max())
+        ms = time_ms(run, warmup=1, iters=iters)
+        plain_ms = time_ms(plain, warmup=1, iters=max(1, iters // 5))
+        lib_ms = time_ms(library, warmup=1, iters=iters)
+        (dev_ms, split), (dev_plain_ms, _), (dev_lib_ms, lib_split) = (
+            device_ms(run, iters), device_ms(plain, max(1, iters // 5)),
+            device_ms(library, iters))
+        del sq, sk, sv, mask
+        pairs = _attn_pairs(S, S, causal, window)
+        flops = 4 * hd * pairs * B * H
+        nbytes = q.element_size() * 2 * hd * (B * S * H + B * S * KH)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S
+                           if dt == torch.bfloat16 else PEAK_FP32_FLOP_PER_S)
+        log(f"[zoo-kernels] flash_attention {label} B={B} S={S} H={H} "
+            f"KH={KH} hd={hd} causal={causal} window={window} "
+            f"{str(dt).removeprefix('torch.')}: max_abs_err={err:.3e} "
+            f"(|out - ref| <= {rtol:.3e}·|ref| + {atol:.0e}: worst "
+            f"{worst:.3f} of the limit; max|ref| "
+            f"{float(ref.float().abs().max()):.3f}, median |ref| "
+            f"{float(ref.float().abs().median()):.4f}) kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f} [{split}], {flops / ms / 1e9:.1f} "
+            f"TFLOP/s at the call time), plain {plain_ms:.4f} ms (device "
+            f"{dev_plain_ms:.4f}), sdpa {lib_ms:.4f} ms (device "
+            f"{dev_lib_ms:.4f}, max_abs_err vs plain {lib_err:.3e}; "
+            f"{lib_split[:100]}), bound {b_ms:.4f} ms ({b_by}; {pairs} "
+            f"pairs per head, {flops:.4e} FLOP, {nbytes} bytes)")
+        if not ok:
+            raise AssertionError(f"flash_attention {label}: worst "
+                                 f"{worst} of the limit")
+        if label == "layer":
+            _flash_faults(q, k, v, out, ref, window, rtol, atol)
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        del q, k, v, out, ref
+    return row
+
+
+def check_ssd_scan() -> dict:
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    B, nc, H, N, P = SSD_SHAPE
+    S = torch.randn((B, nc, H, N, P), generator=gen, device=DEVICE)
+    d = torch.rand((B, nc, H), generator=gen, device=DEVICE)
+
+    def run():
+        return ss.ssd_scan(S, d)
+
+    def plain():
+        return ss.ssd_scan_plain(S, d)
+    (hb, hf), (rb, rf) = run(), plain()
+    torch.cuda.synchronize()
+    err = max(float((hb - rb).abs().max()), float((hf - rf).abs().max()))
+    tol = 1e-5 * max(float(rb.abs().max()), float(rf.abs().max()))
+    ms, plain_ms = time_ms(run), time_ms(plain, warmup=1, iters=10)
+    (dev_ms, split), (dev_plain_ms, _) = device_ms(run), device_ms(plain,
+                                                                   10)
+    nbytes = 4 * (2 * S.numel() + d.numel() + hf.numel())
+    b_ms, b_by = bound(nbytes, 2 * S.numel())
+    log(f"[zoo-kernels] ssd_scan B={B} nc={nc} H={H} N={N} P={P}: "
+        f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} [{split}], {nbytes / ms / 1e6:.0f} GB/s at the call "
+        f"time), plain "
+        f"{plain_ms:.4f} ms (device {dev_plain_ms:.4f}), bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes} bytes)")
+    if not err <= tol:
+        raise AssertionError(f"ssd_scan: {err} > {tol}")
+    # integer-valued S and d = 0.5: every step exact, so bit-exact
+    Si = torch.randint(-8, 9, (B, nc, H, N, P), generator=gen,
+                       device=DEVICE).float()
+    di = torch.full((B, nc, H), 0.5, device=DEVICE)
+    (hb, hf), (rb, rf) = ss.ssd_scan(Si, di), ss.ssd_scan_plain(Si, di)
+    if not (torch.equal(hb, rb) and torch.equal(hf, rf)
+            and float(hb[:, 0].abs().max()) == 0.0):
+        raise AssertionError("ssd_scan: integer inputs not bit-exact")
+    log("[zoo-kernels] ssd_scan integer S, d = 0.5: bit-exact, state "
+        "before chunk 0 exactly 0")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+# --------------------------------------------------------------------- 8
+def _lm_model():
+    import torch
+    from repro_torch.models import lm, registry
+    cfg = registry.get_config(ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                            cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[lm-forward] {ARCH} full config: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} "
+        f"kv), head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.sliding_window}, {cfg.dtype}; "
+        f"{lm.param_count(params)} params initialized on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+@contextlib.contextmanager
+def _flash_in_model(fn):
+    """Has the model's layers call `fn(q, k, v, **kw)` where they call
+    the flash kernel."""
+    from repro_torch.models import layers
+    kernel = layers.flash_attention
+    layers.flash_attention = fn
+    try:
+        yield
+    finally:
+        layers.flash_attention = kernel
+
+
+def _model_faults():
+    """Wrong kernels planted to show what the LM checks catch: attention
+    output zeroed, and the window one key tile short."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    def zeroed(q, k, v, **kw):
+        return torch.zeros_like(q)
+
+    def short(q, k, v, *, window, **kw):
+        return fa.flash_attention(q, k, v, window=window - FAULT_TILE, **kw)
+    return (("attention output zeroed", zeroed),
+            (f"window {FAULT_TILE} keys short", short))
+
+
+def _rel_rms(out, ref) -> float:
+    out, ref = out.float(), ref.float()
+    return float((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+
+
+def _layer_hold(cfg, seen) -> None:
+    """Layer 0's attention at the full shape, on the inputs the model gave
+    the kernel: kernel vs. its plain version element by element, and vs.
+    chunked_attention (the flag off) as a relative rms error, which each
+    planted fault must exceed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import chunked_attention
+    q, k, v, kw = seen["q"], seen["k"], seen["v"], seen["kw"]
+    out = fa.flash_attention(q, k, v, **kw)
+    ok, err, worst = _within(out, fa.flash_attention_plain(q, k, v, **kw),
+                             *FLASH_TOL[cfg.dtype])
+    ref = chunked_attention(q, k, v, **kw)
+    rel = _rel_rms(out, ref)
+    log(f"[lm-forward] layer 0 attention {tuple(q.shape)} {kw}: kernel vs "
+        f"plain max_abs_err={err:.3e} (worst {worst:.3f} of the limit); "
+        f"kernel vs chunked_attention rms(Δ)/rms(ref) {rel:.4e} (limit "
+        f"{LAYER_RMS_RTOL:.4e})")
+    if not (ok and rel <= LAYER_RMS_RTOL):
+        raise AssertionError("lm-forward: layer 0 attention out of "
+                             "tolerance")
+    for label, fault in _model_faults():
+        frel = _rel_rms(fault(q, k, v, **kw), ref)
+        log(f"[lm-forward] planted fault, {label}: layer 0 rms(Δ)/rms(ref) "
+            f"{frel:.4e}: {'caught' if frel > LAYER_RMS_RTOL else 'MISSED'}")
+        if not frel > LAYER_RMS_RTOL:
+            raise AssertionError(f"lm-forward: layer check misses {label}")
+
+
+def _forward(params, cfg, batch):
+    """(loss, last-position logits in f32) of one scoring pass."""
+    from repro_torch.models import lm
+    loss = float(lm.loss_fn(params, cfg, batch))
+    x = lm._embed_inputs(params, cfg, batch)
+    last = lm.logits_fn(params, cfg, lm.forward_trunk(params, cfg, x)
+                        [:, -1:]).float()
+    return loss, last
+
+
+def lm_forward(cfg, params) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to(DEVICE)
+    batch = {"tokens": tokens}
+    res, seen = {}, {}
+
+    def keep_first(q, k, v, **kw):
+        if not seen:
+            seen.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw)
+        return fa.flash_attention(q, k, v, **kw)
+    for flag in (True, False):
+        c = dataclasses.replace(cfg, use_pallas_attn=flag)
+        with _flash_in_model(keep_first):
+            x = lm._embed_inputs(params, c, batch)
+            last = lm.logits_fn(params, c, lm.forward_trunk(params, c, x)
+                                [:, -1:]).float()       # also the warm-up
+            del x
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        loss = float(lm.loss_fn(params, c, batch))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        prof, _ = device_profile(lambda: lm.loss_fn(params, c, batch))
+        busy = sum(us for _, us in prof.values()) / 1e6
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
+        label = "flash kernel" if flag else "chunked_attention"
+        log(f"[lm-forward] loss_fn over {LM_BATCH} x {LM_SEQ} tokens with "
+            f"{label}: loss {loss:.6f}, wall {wall:.3f} s per forward, "
+            f"device {busy:.3f} s, launches {launches}, peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        for name, (count, us) in top:
+            log(f"[lm-forward]   {us / 1e3:10.3f} ms {count:5d}x  "
+                f"{_short(name)}")
+        if not (np.isfinite(loss) and torch.isfinite(last).all()
+                and last.shape == (LM_BATCH, 1, cfg.vocab_size)):
+            raise AssertionError(f"lm-forward {label}: non-finite output")
+        res[flag] = {"loss": loss, "last": last, "launches": launches,
+                     "wall": wall}
+    scale = float(res[False]["last"].abs().max())
+
+    def caught(loss, last) -> tuple[bool, str]:
+        dloss = abs(loss - res[False]["loss"])
+        dlogit = float((last - res[False]["last"]).abs().max())
+        return (not (dloss <= LM_LOSS_TOL
+                     and dlogit <= LM_LOGIT_RTOL * scale),
+                f"|Δloss| {dloss:.3e} (tol {LM_LOSS_TOL:.1e}), max|Δlogits| "
+                f"{dlogit:.4e} (tol {LM_LOGIT_RTOL * scale:.4e}, max|logits| "
+                f"{scale:.4f})")
+    off, text = caught(res[True]["loss"], res[True]["last"])
+    log(f"[lm-forward] flash kernel vs chunked_attention: {text}")
+    if off:
+        raise AssertionError("lm-forward: kernel vs chunked out of tolerance")
+    n = res[True]["launches"]["flash_attention"]
+    if n != cfg.num_layers or res[False]["launches"]["flash_attention"]:
+        raise AssertionError(f"lm-forward: {n} flash launches, expected "
+                             f"{cfg.num_layers} (and 0 with the flag off)")
+    _layer_hold(cfg, seen)
+    seen.clear()
+    # what the end-to-end limits make of the planted faults (reported;
+    # the layer check above is the one held to catch them)
+    c = dataclasses.replace(cfg, use_pallas_attn=True)
+    for label, fault in _model_faults():
+        with _flash_in_model(fault):
+            hit, text = caught(*_forward(params, c, batch))
+        log(f"[lm-forward] planted fault, {label}, end to end: {text}: "
+            f"{'caught' if hit else 'MISSED'}")
+    return res[True]["launches"]
+
+
+# --------------------------------------------------------------------- 9
+def lm_serve(cfg, params) -> None:
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=DEVICE)
+    serve.serve_loop(params, cfg, tokens[:, :16], decode_steps=2)  # warm-up
+    _reset_launches()
+    res = serve.serve_loop(params, cfg, tokens, decode_steps=SERVE_STEPS)
+    launches = _launches()
+    toks = SERVE_BATCH * SERVE_STEPS
+    gen = res["tokens"]
+    log(f"[lm-serve] {ARCH} batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"{SERVE_STEPS} greedy steps on "
+        f"{serve.device_label(torch.device(DEVICE))}: prefill "
+        f"{res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
+        f"({toks / res['decode_s']:.1f} tok/s, "
+        f"{res['decode_s'] / SERVE_STEPS * 1e3:.2f} ms per step), "
+        f"launches {launches}; req0 starts {gen[0, :8].tolist()}")
+    if gen.shape != (SERVE_BATCH, SERVE_STEPS) or not bool(
+            ((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        raise AssertionError("lm-serve: generated ids out of range")
+    with torch.inference_mode():
+        x = lm._embed_inputs(params, cfg, {"tokens": tokens})
+        full = lm.logits_fn(params, cfg, lm.forward_trunk(
+            params, cfg, x)[:, -1]).float()
+        del x
+        _, cache = lm.prefill_step_fn(cfg, capacity=SERVE_PROMPT)(
+            params, {"tokens": tokens[:, :-1]})
+        decode = lm.decode_step_fn(cfg)
+        step, _ = decode(params, cache, tokens[:, -1:], SERVE_PROMPT - 1)
+        # where a decode step's time goes: the same step again (it
+        # rewrites the same cache slot), profiled
+        prof, wall = device_profile(lambda: decode(
+            params, cache, tokens[:, -1:], SERVE_PROMPT - 1))
+    busy = sum(us for _, us in prof.values()) / 1e3
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:4]
+    log(f"[lm-serve] one profiled decode step: wall {wall * 1e3:.2f} ms, "
+        f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%}), "
+        f"{sum(c for c, _ in prof.values())} kernel launches; top: "
+        + ", ".join(f"{_short(n)} {us / 1e3:.3f} ms ({c}x)"
+                    for n, (c, us) in top))
+    err = float((step[:, 0].float() - full).abs().max())
+    scale = float(full.abs().max())
+    log(f"[lm-serve] prefill on {SERVE_PROMPT - 1} tokens + decode of token "
+        f"{SERVE_PROMPT} vs the forward's last position: max|Δlogits| "
+        f"{err:.4e} (tol {LM_LOGIT_RTOL * scale:.4e}, max|logits| "
+        f"{scale:.4f})")
+    if not err <= LM_LOGIT_RTOL * scale:
+        raise AssertionError("lm-serve: decode vs forward out of tolerance")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -584,6 +1096,17 @@ def main() -> int:
         f"{seg['preds'][n_small:].tolist()} int8 "
         f"{q_seg['preds'][n_small:].tolist()}")
 
+    # 7-9: the LM zoo
+    rows["flash_attention"] = check_flash_attention()
+    rows["ssd_scan"] = check_ssd_scan()
+    with torch.inference_mode():
+        cfg, params = _lm_model()
+        launches = lm_forward(cfg, params)      # the main path's counts
+        lm_serve(cfg, params)
+    rows["flash_attention"]["launches"] = launches["flash_attention"]
+    rows["ssd_scan"]["launches"] = launches["ssd_scan"]   # on no path: 0
+    del params
+
     rows["graph_aggregate"].update(launches=dense["launches"][
         "graph_aggregate"])
     rows["segment_aggregate"].update(launches=sparse["launches"][
@@ -597,7 +1120,11 @@ def main() -> int:
             ("segment_aggregate", "segment_aggregate",
              "src/repro/kernels/segment_aggregate/kernel.py:89"),
             ("segment_aggregate_i8", "segment_aggregate",
-             "src/repro/kernels/segment_aggregate/kernel.py:89")):
+             "src/repro/kernels/segment_aggregate/kernel.py:89"),
+            ("flash_attention", "flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("ssd_scan", "ssd_scan",
+             "src/repro/kernels/ssd_scan/kernel.py:48")):
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -605,7 +1132,12 @@ def main() -> int:
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
+    for k in kernels:
+        if not all(np.isfinite(x) for x in k.values()
+                   if isinstance(x, float)):
+            raise AssertionError(f"kernels line: non-finite number in {k}")
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of the
-reference on the serving path, each beside its plain PyTorch version:
+reference, each beside its plain PyTorch version:
 
   graph_aggregate   — fused dense GraphSAGE hop   (csrc/graph_aggregate.cu)
   segment_aggregate — fused sparse GraphSAGE hop  (csrc/segment_aggregate.cu)
+  flash_attention   — forward attention of the LM zoo
+                                                  (csrc/flash_attention.cu)
+  ssd_scan          — Mamba2 inter-chunk state recurrence (csrc/ssd_scan.cu)
 
 Sources build with nvcc at first CUDA use (`build.py`) into
 `kernels/build/`. Wrappers launch the kernel for CUDA tensors and run the

@@ -1,0 +1,150 @@
+"""Forward flash attention in the model layout [B, S, H, hd].
+
+Counterpart of `repro.kernels.flash_attention` (the Pallas TPU kernel
+`flash_attention_bhsd`, reached through `ops.flash_attention`, which
+takes the same [B, S, H, hd] layout):
+
+    s[q, k] = (f32(q) * 1/sqrt(hd)) . f32(k)      kv head h // (H // KH)
+    masked  = k_pos >= Sk, or (causal) k_pos > q_pos,
+              or (window) q_pos - k_pos >= window     ->  s = -1e30
+    out     = softmax_k(s) @ f32(v), in q's dtype     (q_pos = q_offset + i)
+
+`flash_attention` launches the hand-written CUDA kernel
+`csrc/flash_attention.cu` for CUDA tensors and runs the plain PyTorch
+version `flash_attention_plain` for CPU tensors; any other device
+raises. `launches` counts kernel launches.
+
+The plain version repeats the TPU kernel's arithmetic, not the model's
+`chunked_attention`: the TPU kernel casts q to f32 and scales it there,
+while `chunked_attention` scales q in q's dtype before the cast, which in
+bf16 is one rounding more. It takes a dense softmax over all keys, one
+block of query rows at a time to bound its memory.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128          # the kernel's shared-memory tiles hold hd <= 128
+PLAIN_BLOCK_Q = 512         # query rows per step of the plain version
+
+
+def _check_shapes(q, k, v) -> tuple[int, int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q [B,Sq,H,hd] and k, v "
+                         f"[B,Sk,KH,hd] expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KH == 0 or H % KH:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)} (H % KH must be 0)")
+    return B, Sq, Sk, H, KH, hd
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: int | None = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KH,hd]. Returns [B,Sq,H,hd] in q's
+    dtype. The TPU kernel's arithmetic as a dense masked softmax."""
+    B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
+    rep = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    kf = k.float().permute(0, 2, 3, 1)[:, :, None]      # [B,KH,1,hd,Sk]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]      # [B,KH,1,Sk,hd]
+    k_pos = torch.arange(Sk, device=q.device)
+    out = torch.empty_like(q)
+    for s0 in range(0, Sq, PLAIN_BLOCK_Q):
+        n = min(PLAIN_BLOCK_Q, Sq - s0)
+        qb = q[:, s0:s0 + n].float() * scale            # [B,n,H,hd]
+        qb = qb.permute(0, 2, 1, 3).reshape(B, KH, rep, n, hd)
+        s = qb @ kf                                     # [B,KH,rep,n,Sk]
+        q_pos = q_offset + s0 + torch.arange(n, device=q.device)
+        valid = torch.ones((n, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            valid &= q_pos[:, None] - k_pos[None, :] < window
+        s = s.masked_fill(~valid, NEG_INF)
+        o = torch.softmax(s, dim=-1) @ vf               # [B,KH,rep,n,hd]
+        out[:, s0:s0 + n] = o.reshape(B, H, n, hd).transpose(1, 2) \
+            .to(q.dtype)
+    return out
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if lib.flash_attention_f32.argtypes is None:
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
+            fn.argtypes = ([p] * 4 + [i] * 6 + [i64] * 12 + [i] * 3
+                           + [ctypes.c_float, p])
+            fn.restype = i
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KH,hd] (model layout, read through
+    their strides; the last axis must be contiguous). f32 or bf16, all
+    three alike; hd <= 128; `q_offset` a Python int >= 0. Returns
+    [B,Sq,H,hd] in q's dtype."""
+    B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: float32 or bfloat16 expected, "
+                         f"got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be {q.dtype} "
+                             f"on {q.device}, got {t.dtype} on {t.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name}'s last axis must be "
+                             f"contiguous, got strides {t.stride()}")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"1..{MAX_HEAD_DIM}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be a Python int "
+                         f">= 0, got {q_offset!r}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    # the kernel skips key tiles wholly outside the causal window, which
+    # is exact for every query row that sees at least one key
+    if Sk == 0 or (window is not None and q_offset + Sq - window >= Sk):
+        raise ValueError("flash_attention: some query row sees no key "
+                         f"(Sk={Sk}, Sq={Sq}, q_offset={q_offset}, "
+                         f"window={window})")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if B * Sq * H == 0:
+        return out
+    lib = _lib()
+    fn = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
+          else lib.flash_attention_f32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, Sq, Sk, H, KH, hd, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *out.stride()[:3], int(causal),
+             0 if window is None else int(window), q_offset,
+             1.0 / math.sqrt(hd), stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error "
+                           f"{err}")
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,293 @@
+"""Generic LM assembled from config stacks: the dense-attention part of
+`repro.models.lm` (mixers `attn` and `swa`, ffns `mlp` and `none`).
+
+Parameters keep the reference's tree: `embed`, `final_norm`, `lm_head`
+(unless tied) and `stacks`, a list with one entry per stack, each a
+tuple with one dict per pattern element whose leaves carry a leading
+`[repeats]` axis (the reference's `vmap` over layer keys). The
+reference scans the stacked layers with `jax.lax.scan` and wraps them
+in `jax.checkpoint` (remat); the port loops over the layers in Python,
+and remat, which only trades memory for recomputation in training, has
+no counterpart in inference and is dropped. Caches are stacked the same
+way; decode updates them in place.
+
+Entry points:
+  init_params(generator, cfg, device)   — random params at the
+                                          reference's init scales
+  forward_trunk / logits_fn / loss_fn   — the train/score forward
+  prefill_step_fn(cfg, capacity)        — (params, batch) -> (logits, cache)
+  decode_step_fn(cfg)                   — (params, cache, tokens, pos) -> ...
+  init_cache(cfg, batch, capacity)      — empty decode caches
+The MoE, MLA, SSD and RG-LRU mixers, the audio and VLM front ends and
+the train step wait for later slices (ROADMAP.md Queue 1 item 8): they
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+_ATTN = ("attn", "swa")
+
+
+def _parse(elem: str) -> tuple[str, str]:
+    if "+" in elem:
+        m, f = elem.split("+", 1)
+    else:
+        m, f = elem, "none"
+    return m, f
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+        "item 8)")
+
+
+def _check_elem(elem: str) -> tuple[str, str]:
+    mixer, ffn = _parse(elem)
+    if mixer not in _ATTN:
+        if mixer in ("mla", "ssd", "rglru"):
+            raise _unported(f"the {mixer!r} mixer")
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if ffn not in ("mlp", "none"):
+        if ffn == "moe":
+            raise _unported("the 'moe' ffn")
+        raise ValueError(f"unknown ffn {ffn!r}")
+    return mixer, ffn
+
+
+def _mixer_window(cfg: ModelConfig, mixer: str) -> int | None:
+    return cfg.sliding_window if mixer == "swa" else None
+
+
+def _index(tree, i: int):
+    """Layer i of a stacked tree (every leaf's leading axis)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    """Stack per-layer trees along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ----------------------------------------------------------------------------
+# Block init / apply
+# ----------------------------------------------------------------------------
+def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
+               device="cpu") -> dict:
+    _, ffn = _check_elem(elem)
+    p: dict[str, Any] = {"norm1": L._norm_init(cfg.d_model, lead, device),
+                         "mixer": L.attn_init(generator, cfg, lead, device)}
+    if ffn != "none":
+        p["norm2"] = L._norm_init(cfg.d_model, lead, device)
+        p["ffn"] = L.mlp_init(generator, cfg, lead=lead, device=device)
+    return p
+
+
+def _ffn(params: dict, cfg: ModelConfig, ffn: str,
+         x: torch.Tensor) -> torch.Tensor:
+    if ffn != "none":
+        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(params["ffn"], h)
+    return x
+
+
+def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
+                      x: torch.Tensor) -> torch.Tensor:
+    mixer, ffn = _check_elem(elem)
+    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h = L.attn_apply_train(params["mixer"], cfg, h,
+                           window=_mixer_window(cfg, mixer))
+    return _ffn(params, cfg, ffn, x + h)
+
+
+def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
+                     capacity: int, lead: tuple = (), device="cpu") -> dict:
+    mixer, _ = _check_elem(elem)
+    return L.attn_cache_init(cfg, batch, capacity,
+                             window=_mixer_window(cfg, mixer), lead=lead,
+                             device=device)
+
+
+def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
+                       x: torch.Tensor, cache: dict, pos: int) -> tuple:
+    mixer, ffn = _check_elem(elem)
+    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h, new_cache = L.attn_apply_decode(params["mixer"], cfg, h, cache, pos,
+                                       window=_mixer_window(cfg, mixer))
+    return _ffn(params, cfg, ffn, x + h), new_cache
+
+
+def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
+                        x: torch.Tensor, capacity: int) -> tuple:
+    """Like train, but also returns the decode cache for this layer. As
+    in the reference, prefill attends with `chunked_attention` whatever
+    `use_pallas_attn` says."""
+    mixer, ffn = _check_elem(elem)
+    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    window = _mixer_window(cfg, mixer)
+    positions = torch.arange(h.shape[1], device=h.device)
+    q, k, v = L.attn_qkv(params["mixer"], cfg, h, positions)
+    out = L.chunked_attention(q, k, v, causal=True, window=window,
+                              block_kv=cfg.block_kv)
+    h = torch.einsum("bshk,hkd->bsd", out, params["mixer"]["wo"])
+    cache = L.attn_make_cache_from_prefill(cfg, k, v, window=window,
+                                           capacity=capacity)
+    return _ffn(params, cfg, ffn, x + h), cache
+
+
+# ----------------------------------------------------------------------------
+# Whole-model params
+# ----------------------------------------------------------------------------
+def init_params(generator: torch.Generator | None, cfg: ModelConfig,
+                device="cuda") -> dict:
+    """Random params at the reference's init scales, drawn from
+    `generator` (its numbers are not JAX's: carry the reference's own
+    params across with `repro_torch.models.params.lm_from_jax_params`).
+    On the meta device it gives the shapes alone, with no generator."""
+    dev = resolve_device(device)
+    for stack in cfg.stacks:
+        for elem in stack.pattern:
+            _check_elem(elem)
+    _embed_check(cfg)
+    dt = L._dt(cfg)
+    params: dict[str, Any] = {
+        "embed": L._winit(generator, (cfg.vocab_size, cfg.d_model), dt,
+                          device=dev),
+        "final_norm": L._norm_init(cfg.d_model, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._winit(generator, (cfg.d_model,
+                                                 cfg.vocab_size), dt,
+                                     device=dev)
+    params["stacks"] = [
+        tuple(block_init(generator, cfg, elem, (stack.repeats,), dev)
+              for elem in stack.pattern)
+        for stack in cfg.stacks]
+    return params
+
+
+# ----------------------------------------------------------------------------
+# Forward (training / prefill trunk)
+# ----------------------------------------------------------------------------
+def _embed_check(cfg: ModelConfig) -> None:
+    if cfg.embed_inputs:
+        raise _unported("the frame-embedding front end (embed_inputs)")
+    if cfg.num_patch_tokens:
+        raise _unported("the patch-embedding front end (num_patch_tokens)")
+
+
+def _embed_tokens(params, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    tok = params["embed"][tokens.long()]
+    return tok * L._scalar(math.sqrt(cfg.d_model), tok)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    _embed_check(cfg)
+    return _embed_tokens(params, cfg, batch["tokens"])
+
+
+def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,D] embeddings -> final hidden states."""
+    for stack, elem_params in zip(cfg.stacks, params["stacks"]):
+        for i in range(stack.repeats):
+            for elem, p in zip(stack.pattern, elem_params):
+                x = block_apply_train(_index(p, i), cfg, elem, x)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy over the batch, f32 scalar."""
+    x = _embed_inputs(params, cfg, batch)
+    h = forward_trunk(params, cfg, x)
+    logits = logits_fn(params, cfg, h).float()
+    lg = logits[:, :-1]
+    labels = batch["tokens"][:, 1:].long()
+    logp = torch.log_softmax(lg, dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ----------------------------------------------------------------------------
+# Serving: prefill + decode
+# ----------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device="cuda") -> list:
+    dev = resolve_device(device)
+    return [tuple(block_cache_init(cfg, elem, batch, capacity,
+                                   (stack.repeats,), dev)
+                  for elem in stack.pattern)
+            for stack in cfg.stacks]
+
+
+def prefill_step_fn(cfg: ModelConfig, capacity: int):
+    def prefill(params, batch):
+        x = _embed_inputs(params, cfg, batch)
+        caches = []
+        for stack, elem_params in zip(cfg.stacks, params["stacks"]):
+            per_layer = []
+            for i in range(stack.repeats):
+                layer_caches = []
+                for elem, p in zip(stack.pattern, elem_params):
+                    x, c = block_apply_prefill(_index(p, i), cfg, elem, x,
+                                               capacity)
+                    layer_caches.append(c)
+                per_layer.append(layer_caches)
+            caches.append(tuple(_stack([lc[e] for lc in per_layer])
+                                for e in range(len(stack.pattern))))
+        h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = logits_fn(params, cfg, h[:, -1:, :])
+        return logits, caches
+
+    return prefill
+
+
+def decode_step_fn(cfg: ModelConfig):
+    def decode(params, caches, tokens, pos):
+        """tokens: [B,1] int; pos: int, the tokens' position. Updates
+        `caches` in place; returns (logits [B,1,V], caches)."""
+        pos = int(pos)
+        x = _embed_tokens(params, cfg, tokens)
+        for stack, elem_params, stack_cache in zip(cfg.stacks,
+                                                   params["stacks"], caches):
+            for i in range(stack.repeats):
+                for elem, p, c in zip(stack.pattern, elem_params,
+                                      stack_cache):
+                    x, _ = block_apply_decode(_index(p, i), cfg, elem, x,
+                                              _index(c, i), pos)
+        h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return logits_fn(params, cfg, h), caches
+
+    return decode
+
+
+def param_count(params) -> int:
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                yield from leaves(v)
+        else:
+            yield t
+    return int(sum(x.numel() for x in leaves(params)))

@@ -187,3 +187,123 @@ def test_int8_cost_model_on_card_kernels_match_plain(layout):
         preds.append(make_predict_fn(q.serving_config())(q.model(), batch))
     assert (sa.launches_i8 > before) == (layout != "dense")
     np.testing.assert_allclose(preds[0], preds[1], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ LM zoo: flash, ssd_scan
+# (B, Sq, Sk, H, KH, hd, causal, window, q_offset)
+FLASH_CUDA_CASES = [
+    (2, 200, 200, 8, 2, 120, True, 64, 0),     # the model's hd, ragged S
+    (1, 128, 128, 4, 4, 128, True, None, 0),
+    (2, 96, 96, 8, 2, 16, False, None, 0),
+    (1, 70, 70, 4, 1, 48, False, 20, 0),       # non-causal window, MQA
+    (1, 24, 300, 4, 2, 64, True, 100, 276),    # int q_offset, Sq < Sk
+]
+
+
+def _flash_cuda_inputs(case, dtype, seed):
+    B, Sq, Sk, H, KH, hd = case[:6]
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to("cuda", dtype)
+            for shape in ((B, Sq, H, hd), (B, Sk, KH, hd), (B, Sk, KH, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CUDA_CASES, ids=str)
+def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
+    """f32: the kernel's fp32 CUDA-core sums against cuBLAS's f32 (TF32
+    off), 2e-5; bf16: the same f32 sums rounded to bf16, so at most one
+    ulp (<= 2^-7·|ref|) apart, held to 2^-6·|ref| + 1e-5 per element."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, window, q_offset = case[6:]
+    q, k, v = _flash_cuda_inputs(case, getattr(torch, dtype), seed=case[5])
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    assert out.dtype == q.dtype
+    rtol, atol = (2.0 ** -6, 1e-5) if dtype == "bfloat16" else (2e-5, 2e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_kernel_reads_strided_layouts():
+    """q, k, v as views into one packed [B, S, 3, H, hd] projection."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn((2, 130, 3, 4, 120), generator=g).cuda()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :2], qkv[:, :, 2, 2:]
+    out = fa.flash_attention(q, k, v, causal=True, window=50)
+    ref = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True, window=50)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 8, 2, 160), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 16), device="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="sees no key"):
+        fa.flash_attention(q, q, q, window=4, q_offset=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 8, 16, 2), device="cuda").transpose(2, 3)
+        fa.flash_attention(t, t, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 1, 1, 8, 8), (2, 5, 3, 16, 8),
+                                  (2, 32, 80, 128, 64)], ids=str)
+def test_ssd_scan_cuda_kernel_bitexact_with_plain(case):
+    """The kernel rounds the multiply and the add apart, as the plain
+    version's two ops do: bit for bit on any input."""
+    _need_card()
+    from repro_torch.kernels import ssd_scan as ss
+    g = torch.Generator().manual_seed(case[1])
+    S = torch.randn(case, generator=g).cuda()
+    d = torch.rand(case[:3], generator=g).cuda()
+    before = ss.launches
+    hb, hf = ss.ssd_scan(S, d)
+    assert ss.launches == before + 1
+    rb, rf = ss.ssd_scan_plain(S, d)
+    assert torch.equal(hb, rb) and torch.equal(hf, rf)
+    assert float(hb[:, 0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "qwen3-14b"])
+def test_smoke_lm_on_card_flash_kernel_matches_chunked(arch):
+    """The smoke LM (f32) on the card with the flash kernel on vs. off;
+    one launch per attention layer per forward."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get_smoke_config(arch)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80))).cuda()
+    losses, logits = [], []
+    for flag in (True, False):
+        c = dataclasses.replace(cfg, use_pallas_attn=flag)
+        before = fa.launches
+        losses.append(float(lm.loss_fn(params, c, {"tokens": tokens})))
+        assert fa.launches - before == (cfg.num_layers if flag else 0)
+        logits.append(lm.logits_fn(params, c, lm.forward_trunk(
+            params, c, lm._embed_inputs(params, c, {"tokens": tokens}))))
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-5, atol=1e-5)

@@ -65,6 +65,16 @@ print(json.dumps({{"mods": mods, "bad": bad}}))
     assert "repro_torch.kernels.segment_aggregate" in out["mods"]
     assert {"repro_torch.quant.scale", "repro_torch.quant.quantize",
             "repro_torch.data.segmentation"} <= set(out["mods"])
+    assert {"repro_torch.models.config", "repro_torch.models.registry",
+            "repro_torch.models.inputs", "repro_torch.models.layers",
+            "repro_torch.models.lm", "repro_torch.models.params",
+            "repro_torch.configs.h2o_danube3_4b",
+            "repro_torch.configs.qwen3_14b",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan",
+            "repro_torch.launch.serve"} <= set(out["mods"])
+    assert sum(m.startswith("repro_torch.configs.")
+               for m in out["mods"]) == 10
     assert out["bad"] == []
 
 
@@ -105,6 +115,41 @@ print("refused")
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "refused"
+
+
+def test_lm_entry_points_refuse_to_run_without_a_card():
+    code = """
+import torch
+from repro_torch.models import inputs, lm, registry
+from repro_torch.models.config import SMOKE_SHAPE
+from repro_torch.models.params import lm_from_jax_params
+assert not torch.cuda.is_available()
+cfg = registry.get_smoke_config("h2o-danube-3-4b")
+for call in (lambda: lm.init_params(torch.Generator(), cfg),
+             lambda: lm_from_jax_params({}, cfg),
+             lambda: lm.init_cache(cfg, 1, 8),
+             lambda: inputs.make_batch(cfg, SMOKE_SHAPE)):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise SystemExit("ran without a card")
+print("refused")
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "refused"
+
+
+def test_lm_serve_cli_refuses_without_a_card():
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "h2o-danube-3-4b", "--smoke"], env=_env(), capture_output=True,
+        text=True, timeout=120, cwd=ROOT)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "tok/s" not in res.stdout
 
 
 def test_serve_cli_refuses_without_a_card():
