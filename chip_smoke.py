@@ -33,22 +33,24 @@ Phases, each reported on its own lines; any failure exits non-zero:
              as through the sparse service.
 7. zoo-kernels — the LM zoo's kernels against their plain versions:
              `flash_attention` at h2o-danube-3-4b's layer shape (B=2,
-             S=8192, H=32, KH=8, hd=120, causal, window 4096, bf16), at
-             hd=128, non-causal and in f32 at smaller S, timed beside
+             S=8192, H=32, KH=8, hd=120, causal, window 4096, bf16: the
+             tensor-core kernel), at hd=128 and non-causal (bf16) and in
+             f32 (the CUDA-core kernel) at smaller S, timed beside
              PyTorch's scaled_dot_product_attention on the same inputs
              (the yardstick only), each held element by element; at
-             the layer shape, planted faults (window off by one, a key
-             tile left out) must fail that check; `ssd_scan` at
+             the layer shape, planted faults (window off by one, 64 keys
+             left out) must fail that check; `ssd_scan` at
              Mamba2-2.7b's full shapes (B=2, nc=32, H=80, N=128, P=64),
              bit-exact.
 8. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
              weights from seed 0) scores 2 x 8192 tokens through
-             `loss_fn` with the flash kernel (24 launches) and with
+             `loss_fn` with the flash kernel (24 launches, all of the
+             tensor-core kernel) and with
              `chunked_attention`; loss and last-position logits agree
              within the stated bf16 tolerance; layer 0's attention on
              the model's own inputs is held against the plain version
              and `chunked_attention`, and planted faults (output zeroed,
-             window one key tile short) must fail the latter; what the
+             window 64 keys short) must fail the latter; what the
              end-to-end limits make of those faults is printed.
 9. lm-serve — the port's serve loop (`repro_torch.launch.serve`) on the
              same model: batch 4, prompt 512, 64 greedy decode steps;
@@ -436,7 +438,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels import segment_aggregate as sa
     from repro_torch.kernels import ssd_scan as ss
     ga.launches = sa.launches = sa.launches_i8 = 0
-    fa.launches = ss.launches = 0
+    fa.launches = fa.launches_tc = fa.launches_f32 = ss.launches = 0
 
 
 def _launches() -> dict:
@@ -447,7 +449,9 @@ def _launches() -> dict:
     return {"graph_aggregate": ga.launches,
             "segment_aggregate": sa.launches,
             "segment_aggregate_i8": sa.launches_i8,
-            "flash_attention": fa.launches, "ssd_scan": ss.launches}
+            "flash_attention": fa.launches,
+            "flash_attention_tc": fa.launches_tc,
+            "flash_attention_f32": fa.launches_f32, "ssd_scan": ss.launches}
 
 
 def serve(label, make_service, requests, kernels) -> dict:
@@ -593,7 +597,9 @@ SSD_SHAPE = (2, 32, 80, 128, 64)    # B, nc, H, N, P: Mamba2-2.7b, 8192 tokens
 # atol covers elements near 0. In f32, rtol is the reference's own test
 # tolerance and atol 5.6x the largest error seen on the card (8.9e-7).
 FLASH_TOL = {"bfloat16": (2.0 ** -6, 1e-5), "float32": (2e-5, 5e-6)}
-FAULT_TILE = 64                     # keys per tile of the kernel
+# keys left out by the planted faults (and query rows held apart): half
+# of the bf16 kernel's 128-key tile, finer than any tile it skips
+FAULT_TILE = 64
 # One layer's attention output at the full shape, kernel vs.
 # chunked_attention (the model's path with the flag off), as
 # rms(Δ) / rms(ref): their bf16 rounding of q·scale differs (see above),
@@ -690,11 +696,14 @@ def _flash_faults(q, k, v, out, ref, window, rtol, atol) -> None:
 
 
 def check_flash_attention() -> dict:
+    """Each FLASH_CASES case: kernel vs plain, element by element, timed
+    beside the plain version and SDPA. Returns the kernels-line rows of
+    the two routes: bf16 (tensor cores) at the layer shape, f32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    row = None
+    rows = {}
     for label, B, S, H, KH, hd, causal, window, dt, iters in FLASH_CASES:
         rtol, atol = FLASH_TOL[dt]
         dt = getattr(torch, dt)
@@ -727,17 +736,21 @@ def check_flash_attention() -> dict:
         pairs = _attn_pairs(S, S, causal, window)
         flops = 4 * hd * pairs * B * H
         nbytes = q.element_size() * 2 * hd * (B * S * H + B * S * KH)
+        bf16 = dt == torch.bfloat16
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S
-                           if dt == torch.bfloat16 else PEAK_FP32_FLOP_PER_S)
+                           if bf16 else PEAK_FP32_FLOP_PER_S)
+        route = ("flash_attention_sm90.cu, tensor cores" if bf16
+                 else "flash_attention.cu, CUDA cores")
         log(f"[zoo-kernels] flash_attention {label} B={B} S={S} H={H} "
             f"KH={KH} hd={hd} causal={causal} window={window} "
-            f"{str(dt).removeprefix('torch.')}: max_abs_err={err:.3e} "
+            f"{str(dt).removeprefix('torch.')} ({route}): kernel {ms:.4f} "
+            f"ms call, {flops / ms / 1e9:.1f} TFLOP/s, bound / call "
+            f"{b_ms / ms:.1%}; max_abs_err={err:.3e} "
             f"(|out - ref| <= {rtol:.3e}·|ref| + {atol:.0e}: worst "
             f"{worst:.3f} of the limit; max|ref| "
             f"{float(ref.float().abs().max()):.3f}, median |ref| "
-            f"{float(ref.float().abs().median()):.4f}) kernel {ms:.4f} ms "
-            f"(device {dev_ms:.4f} [{split}], {flops / ms / 1e9:.1f} "
-            f"TFLOP/s at the call time), plain {plain_ms:.4f} ms (device "
+            f"{float(ref.float().abs().median()):.4f}) kernel device "
+            f"{dev_ms:.4f} ms [{split}], plain {plain_ms:.4f} ms (device "
             f"{dev_plain_ms:.4f}), sdpa {lib_ms:.4f} ms (device "
             f"{dev_lib_ms:.4f}, max_abs_err vs plain {lib_err:.3e}; "
             f"{lib_split[:100]}), bound {b_ms:.4f} ms ({b_by}; {pairs} "
@@ -747,10 +760,12 @@ def check_flash_attention() -> dict:
                                  f"{worst} of the limit")
         if label == "layer":
             _flash_faults(q, k, v, out, ref, window, rtol, atol)
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if label in ("layer", "f32"):
+            rows[label] = {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": lib_ms}
         del q, k, v, out, ref
-    return row
+    return rows
 
 
 def check_ssd_scan() -> dict:
@@ -948,9 +963,13 @@ def lm_forward(cfg, params) -> dict:
     if off:
         raise AssertionError("lm-forward: kernel vs chunked out of tolerance")
     n = res[True]["launches"]["flash_attention"]
-    if n != cfg.num_layers or res[False]["launches"]["flash_attention"]:
-        raise AssertionError(f"lm-forward: {n} flash launches, expected "
-                             f"{cfg.num_layers} (and 0 with the flag off)")
+    n_tc = res[True]["launches"]["flash_attention_tc"]
+    if (n != cfg.num_layers or n_tc != n
+            or res[False]["launches"]["flash_attention"]):
+        raise AssertionError(f"lm-forward: {n} flash launches ({n_tc} on "
+                             f"the tensor-core kernel), expected "
+                             f"{cfg.num_layers}, all on it (and 0 with the "
+                             f"flag off)")
     _layer_hold(cfg, seen)
     seen.clear()
     # what the end-to-end limits make of the planted faults (reported;
@@ -1097,13 +1116,16 @@ def main() -> int:
         f"{q_seg['preds'][n_small:].tolist()}")
 
     # 7-9: the LM zoo
-    rows["flash_attention"] = check_flash_attention()
+    flash = check_flash_attention()
+    rows["flash_attention"], rows["flash_attention_f32"] = (
+        flash["layer"], flash["f32"])
     rows["ssd_scan"] = check_ssd_scan()
     with torch.inference_mode():
         cfg, params = _lm_model()
         launches = lm_forward(cfg, params)      # the main path's counts
         lm_serve(cfg, params)
-    rows["flash_attention"]["launches"] = launches["flash_attention"]
+    rows["flash_attention"]["launches"] = launches["flash_attention_tc"]
+    rows["flash_attention_f32"]["launches"] = launches["flash_attention_f32"]
     rows["ssd_scan"]["launches"] = launches["ssd_scan"]   # on no path: 0
     del params
 
@@ -1121,7 +1143,9 @@ def main() -> int:
              "src/repro/kernels/segment_aggregate/kernel.py:89"),
             ("segment_aggregate_i8", "segment_aggregate",
              "src/repro/kernels/segment_aggregate/kernel.py:89"),
-            ("flash_attention", "flash_attention",
+            ("flash_attention", "flash_attention_sm90",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("flash_attention_f32", "flash_attention",
              "src/repro/kernels/flash_attention/kernel.py:79"),
             ("ssd_scan", "ssd_scan",
              "src/repro/kernels/ssd_scan/kernel.py:48")):

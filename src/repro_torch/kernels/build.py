@@ -21,7 +21,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
 SOURCES = ("graph_aggregate", "segment_aggregate", "flash_attention",
-           "ssd_scan")
+           "flash_attention_sm90", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _HEADERS = ("row_tile.cuh",)

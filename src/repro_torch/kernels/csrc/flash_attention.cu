@@ -10,16 +10,17 @@
 //             or (window) q_pos - k >= window
 //     out   = sum_k exp(s[k] - m) f32(v[b,k,kh,:]) / max(sum_k exp(s[k] - m),
 //             1e-30), carried as a running (max m, normalizer, accumulator)
-//             over key tiles, stored in q's dtype (f32 or bf16)
+//             over key tiles, stored in f32
 //
 // What bounds it on an H100: at h2o-danube-3-4b's layer shape (B = 2,
 // S = 8192, H = 32, KH = 8, hd = 120, causal, window 4096) the unmasked
 // (q, k) pairs are 25.2 M per (b, h), 4 hd FLOPs each: 7.7e11 FLOPs a
 // call against ~157 MB of q, k, v and out. That is 0.78 ms at the bf16
 // tensor-core peak and 0.05 ms of memory, so the operations bound it.
-// This first kernel does them in fp32 on the CUDA cores (67 TFLOP/s
-// peak), both for f32 and bf16 inputs: no TF32 and no tensor cores, so
-// the f32 result keeps f32 accuracy. wgmma/TMA are later work.
+// This kernel is the f32 route: it does them in fp32 on the CUDA cores
+// (67 TFLOP/s peak), no TF32 and no tensor cores, so the f32 result
+// keeps f32 accuracy (TF32 would break its 2e-5 tolerance). bf16 inputs
+// go to flash_attention_sm90.cu (wgmma and TMA).
 //
 // Design: one block of 256 threads per (query tile of 64 rows, head,
 // batch). The query tile is staged once in shared memory as f32, scaled
@@ -35,7 +36,6 @@
 // every row that sees at least one key, which the wrapper checks.
 // hd <= 128 at any value: hd = 120 is masked at the loads and stores.
 // 96.5 KB of dynamic shared memory: two blocks per SM.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,23 +56,14 @@ constexpr float kNegInf = -1e30f;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kBQ * kQKS + kBK * kQKS + kBK * kVS);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);   // round to nearest even, as torch's .to()
-}
-
 struct Strides {
   int64_t b, s, h;              // elements; the head-dim axis has stride 1
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        int Sq, int Sk, int H, int KH, int hd, Strides qs_,
                        Strides ks_, Strides vs_, Strides os_, int causal,
                        int window, int q_offset, float scale) {
@@ -88,14 +79,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const T* qb = q + b * qs_.b + h * qs_.h;
-  const T* kb = k + b * ks_.b + kh * ks_.h;
-  const T* vb = v + b * vs_.b + kh * vs_.h;
+  const float* qb = q + b * qs_.b + h * qs_.h;
+  const float* kb = k + b * ks_.b + kh * ks_.h;
+  const float* vb = v + b * vs_.b + kh * vs_.h;
 
   for (int e = tid; e < kBQ * hd; e += kThreads) {
     const int r = e / hd, d = e - r * hd;
     const int i = q0 + r;
-    q_s[r * kQKS + d] = i < Sq ? to_f32(qb[i * qs_.s + d]) * scale : 0.f;
+    q_s[r * kQKS + d] = i < Sq ? qb[i * qs_.s + d] * scale : 0.f;
   }
   // V's head-dim pad is read by the product and never loaded: zero it once
   const int pad = kHD - hd;
@@ -125,8 +116,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / hd, d = e - r * hd;
       const int j = k0 + r;
       const bool in = j < Sk;
-      k_s[r * kQKS + d] = in ? to_f32(kb[j * ks_.s + d]) : 0.f;
-      v_s[r * kVS + d] = in ? to_f32(vb[j * vs_.s + d]) : 0.f;
+      k_s[r * kQKS + d] = in ? kb[j * ks_.s + d] : 0.f;
+      v_s[r * kVS + d] = in ? vb[j * vs_.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,56 +197,41 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + b * os_.b + r * os_.s + h * os_.h;
+    float* o = out + b * os_.b + r * os_.s + h * os_.h;
 #pragma unroll
     for (int j = 0; j < kOut; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) store(o + d, acc[i][j] / den);
+      if (d < hd) o[d] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* out, int B, int Sq,
-           int Sk, int H, int KH, int hd, const int64_t* st, int causal,
-           int window, int q_offset, float scale, void* stream) {
+}  // namespace
+
+// q [B,Sq,H,hd], k/v [B,Sk,KH,hd], out [B,Sq,H,hd], f32 on the device,
+// each given by its batch, sequence and head strides in elements (the
+// head-dim axis contiguous). window 0 = none. Launch on `stream`; return
+// cudaGetLastError().
+extern "C" int flash_attention_f32(
+    const float* q, const float* k, const float* v, float* out, int B,
+    int Sq, int Sk, int H, int KH, int hd, int64_t qsb, int64_t qss,
+    int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
+    int64_t vss, int64_t vsh, int64_t osb, int64_t oss, int64_t osh,
+    int causal, int window, int q_offset, float scale, void* stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const Strides qs_{st[0], st[1], st[2]}, ks_{st[3], st[4], st[5]},
-      vs_{st[6], st[7], st[8]}, os_{st[9], st[10], st[11]};
+  const Strides qs_{qsb, qss, qsh}, ks_{ksb, kss, ksh}, vs_{vsb, vss, vsh},
+      os_{osb, oss, osh};
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T><<<grid, kThreads, kSmemBytes,
-                              (cudaStream_t)stream>>>(
+  flash_attention_kernel<<<grid, kThreads, kSmemBytes,
+                           (cudaStream_t)stream>>>(
       q, k, v, out, Sq, Sk, H, KH, hd, qs_, ks_, vs_, os_, causal, window,
       q_offset, scale);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
-
-// q [B,Sq,H,hd], k/v [B,Sk,KH,hd], out [B,Sq,H,hd] on the device, each
-// given by its batch, sequence and head strides in elements (the head-dim
-// axis contiguous). window 0 = none. Launch on `stream`; return
-// cudaGetLastError().
-#define FLASH_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const T* q, const T* k, const T* v, T* out, int B,   \
-                      int Sq, int Sk, int H, int KH, int hd, int64_t qsb,  \
-                      int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,  \
-                      int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,  \
-                      int64_t osb, int64_t oss, int64_t osh, int causal,   \
-                      int window, int q_offset, float scale,               \
-                      void* stream) {                                      \
-    const int64_t st[12] = {qsb, qss, qsh, ksb, kss, ksh,                  \
-                            vsb, vss, vsh, osb, oss, osh};                 \
-    return launch<T>(q, k, v, out, B, Sq, Sk, H, KH, hd, st, causal,       \
-                     window, q_offset, scale, stream);                     \
-  }
-
-FLASH_ENTRY(flash_attention_f32, float)
-FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)

@@ -9,10 +9,13 @@ takes the same [B, S, H, hd] layout):
               or (window) q_pos - k_pos >= window     ->  s = -1e30
     out     = softmax_k(s) @ f32(v), in q's dtype     (q_pos = q_offset + i)
 
-`flash_attention` launches the hand-written CUDA kernel
-`csrc/flash_attention.cu` for CUDA tensors and runs the plain PyTorch
-version `flash_attention_plain` for CPU tensors; any other device
-raises. `launches` counts kernel launches.
+`flash_attention` routes by device and dtype: bf16 CUDA tensors launch
+the tensor-core kernel `csrc/flash_attention_sm90.cu` (wgmma and TMA;
+`launches_tc`), f32 CUDA tensors the CUDA-core kernel
+`csrc/flash_attention.cu` (`launches_f32`), and CPU tensors run the
+plain PyTorch version `flash_attention_plain`; any other device raises,
+and a failed build or launch raises. `launches` counts every kernel
+launch.
 
 The plain version repeats the TPU kernel's arithmetic, not the model's
 `chunked_attention`: the TPU kernel casts q to f32 and scales it there,
@@ -30,6 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+launches_tc = 0             # bf16: csrc/flash_attention_sm90.cu
+launches_f32 = 0            # f32: csrc/flash_attention.cu
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128          # the kernel's shared-memory tiles hold hd <= 128
 PLAIN_BLOCK_Q = 512         # query rows per step of the plain version
@@ -79,15 +84,35 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    if lib.flash_attention_f32.argtypes is None:
+def _kernel(bf16: bool):
+    """The C entry point of the bf16 (tensor-core) or the f32 kernel."""
+    name = "flash_attention_sm90" if bf16 else "flash_attention"
+    fn = getattr(build.load(name), name if bf16 else "flash_attention_f32")
+    if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
-            fn.argtypes = ([p] * 4 + [i] * 6 + [i64] * 12 + [i] * 3
-                           + [ctypes.c_float, p])
-            fn.restype = i
-    return lib
+        fn.argtypes = ([p] * 4 + [i] * 6 + [i64] * 12 + [i] * 3
+                       + [ctypes.c_float, p])
+        fn.restype = i
+    return fn
+
+
+def _check_tma(q, k, v) -> None:
+    """The bf16 kernel reads q, k, v with TMA, whose tensor maps need
+    16-byte aligned base pointers and strides that are multiples of 16
+    bytes, the head-dim row (hd * 2 bytes) included."""
+    hd = q.shape[-1]
+    if hd * 2 % 16:
+        raise ValueError(f"flash_attention: bf16 head dim {hd} must be a "
+                         f"multiple of 8 (TMA: rows of hd * 2 bytes, a "
+                         f"multiple of 16)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name}'s base pointer is "
+                             f"not 16-byte aligned (TMA)")
+        if any(s * 2 % 16 for s in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {name}'s strides "
+                             f"{t.stride()} must be multiples of 8 "
+                             f"elements (TMA: multiples of 16 bytes)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -95,8 +120,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KH,hd] (model layout, read through
     their strides; the last axis must be contiguous). f32 or bf16, all
-    three alike; hd <= 128; `q_offset` a Python int >= 0. Returns
-    [B,Sq,H,hd] in q's dtype."""
+    three alike; hd <= 128 (in bf16 a multiple of 8, and pointers and
+    strides as TMA takes them: `_check_tma`); `q_offset` a Python int
+    >= 0. Returns [B,Sq,H,hd] in q's dtype."""
     B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -130,21 +156,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: some query row sees no key "
                          f"(Sk={Sk}, Sq={Sq}, q_offset={q_offset}, "
                          f"window={window})")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma(q, k, v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B * Sq * H == 0:
         return out
-    lib = _lib()
-    fn = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.flash_attention_f32)
+    fn = _kernel(bf16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, Sq, Sk, H, KH, hd, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *out.stride()[:3], int(causal),
              0 if window is None else int(window), q_offset,
              1.0 / math.sqrt(hd), stream)
-    if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error "
-                           f"{err}")
-    global launches
+    if err:         # a CUDA error; bf16 also 10000 (no tensor-map encoder)
+        raise RuntimeError(f"flash_attention launch failed: error {err}"
+                           + (" (20000 + the CUresult of "
+                              "cuTensorMapEncodeTiled)" if err >= 20000
+                              else ""))
+    global launches, launches_tc, launches_f32
     launches += 1
+    if bf16:
+        launches_tc += 1
+    else:
+        launches_f32 += 1
     return out

@@ -197,6 +197,8 @@ FLASH_CUDA_CASES = [
     (2, 96, 96, 8, 2, 16, False, None, 0),
     (1, 70, 70, 4, 1, 48, False, 20, 0),       # non-causal window, MQA
     (1, 24, 300, 4, 2, 64, True, 100, 276),    # int q_offset, Sq < Sk
+    (1, 1024, 1024, 4, 2, 120, True, 256, 0),  # key tiles skipped, edges
+    (2, 190, 190, 4, 2, 64, False, 100, 0),    # Sq not a multiple of 128
 ]
 
 
@@ -211,18 +213,22 @@ def _flash_cuda_inputs(case, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CUDA_CASES, ids=str)
 def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
-    """f32: the kernel's fp32 CUDA-core sums against cuBLAS's f32 (TF32
-    off), 2e-5; bf16: the same f32 sums rounded to bf16, so at most one
-    ulp (<= 2^-7·|ref|) apart, held to 2^-6·|ref| + 1e-5 per element."""
+    """f32 (csrc/flash_attention.cu): the kernel's fp32 CUDA-core sums
+    against cuBLAS's f32 (TF32 off), 2e-5; bf16 (the tensor-core kernel,
+    csrc/flash_attention_sm90.cu): f32 sums with P split into bf16
+    halves, rounded to bf16, so at most one ulp (<= 2^-7·|ref|) apart,
+    held to 2^-6·|ref| + 1e-5 per element."""
     _need_card()
     from repro_torch.kernels import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     causal, window, q_offset = case[6:]
     q, k, v = _flash_cuda_inputs(case, getattr(torch, dtype), seed=case[5])
-    before = fa.launches
+    before = fa.launches, fa.launches_tc, fa.launches_f32
     out = fa.flash_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
-    assert fa.launches == before + 1
+    bf16 = dtype == "bfloat16"
+    assert (fa.launches, fa.launches_tc, fa.launches_f32) == (
+        before[0] + 1, before[1] + bf16, before[2] + (not bf16))
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
     assert out.dtype == q.dtype
@@ -232,17 +238,22 @@ def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_cuda_kernel_reads_strided_layouts():
-    """q, k, v as views into one packed [B, S, 3, H, hd] projection."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cuda_kernel_reads_strided_layouts(dtype):
+    """q, k, v as views into one packed [B, S, 3, H, hd] projection (in
+    bf16 through the TMA tensor maps' strides)."""
     _need_card()
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator().manual_seed(1)
-    qkv = torch.randn((2, 130, 3, 4, 120), generator=g).cuda()
+    qkv = torch.randn((2, 130, 3, 4, 120), generator=g).to(
+        "cuda", getattr(torch, dtype))
     q, k, v = qkv[:, :, 0], qkv[:, :, 1, :2], qkv[:, :, 2, 2:]
     out = fa.flash_attention(q, k, v, causal=True, window=50)
     ref = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True, window=50)
-    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    rtol, atol = (2.0 ** -6, 1e-5) if dtype == "bfloat16" else (2e-5, 2e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.cuda
@@ -260,6 +271,29 @@ def test_flash_attention_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros((1, 8, 16, 2), device="cuda").transpose(2, 3)
         fa.flash_attention(t, t, t)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_bf16_rejects_what_tma_cannot_take():
+    """The bf16 kernel's tensor maps need 16-byte aligned pointers and
+    strides, rows of hd * 2 bytes included; the wrapper says which rule
+    a layout breaks, and launches nothing."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    before = fa.launches
+    q = torch.zeros((1, 8, 2, 20), device="cuda", dtype=bf)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(q, q, q)
+    buf = torch.zeros((1, 8, 2, 72), device="cuda", dtype=bf)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t = buf[..., 1:65]
+        fa.flash_attention(t, t, t)
+    buf = torch.zeros((1, 8, 2, 68), device="cuda", dtype=bf)
+    with pytest.raises(ValueError, match="strides"):
+        t = buf[..., :64]
+        fa.flash_attention(t, t, t)
+    assert fa.launches == before
 
 
 @pytest.mark.cuda
