@@ -12,9 +12,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
 3. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving path's shapes, with the stated tolerance,
              and times both with CUDA events and the profiler beside the
-             kernel's bound: `segment_aggregate` with f32 and with int8
-             weights, at the replay's packs and at the inner batch of one
-             10k-node whole program segmented at a budget of 512.
+             kernel's bound (split tf32 for the aggregation kernels, the
+             fp32 bound beside it), its issued tf32 rate and its device
+             time by launch: `graph_aggregate` at N = 17, 64, 100 and
+             512 (the last keeps its messages in a device scratch),
+             `segment_aggregate` with f32 weights at the replay's packs
+             (64, 512, a ragged pack) and one node, fused launch vs. two
+             launches, and with int8 weights at the 512 pack and at the
+             inner batch of one 10k-node whole program segmented at a
+             budget of 512 (f32 too); integer inputs bit-exact; planted
+             faults (an adjacency entry flipped, an edge left out of the
+             CSR) must fail the check.
 4. serve   — replays the tile-search query stream through the port's
              `CostModelService` at the full width of the default
              `CostModelConfig` with the kernels on, once per layout
@@ -78,6 +86,7 @@ SRC = os.path.join(ROOT, "src")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 FEATURES = 192            # CostModelConfig().hidden_dim
 DENSE_BATCH = 128         # CostModelService chunk
 SEGMENT_BUDGET = 512      # 8 * CostModelConfig().max_nodes
@@ -216,11 +225,11 @@ def _replay():
                              seed=0)
 
 
-def _packed_edges(replay, node_budget: int):
-    """The first pack of the stream's distinct graphs at `node_budget`,
-    encoded as the service encodes it: real indices and masks."""
-    from repro_torch.data.batching import bucket_for, encode_packed, \
-        pack_graphs
+def _pack_graphs(replay, node_budget: int, ragged: bool = False):
+    """The graphs of the first pack of the stream's distinct graphs at
+    `node_budget` (ragged: the first whose node count is not a multiple
+    of 64)."""
+    from repro_torch.data.batching import pack_graphs
     seen, graphs = set(), []
     for req in replay.requests:
         for g in req:
@@ -228,9 +237,53 @@ def _packed_edges(replay, node_budget: int):
             if key not in seen:
                 seen.add(key)
                 graphs.append(g)
-    pack = pack_graphs(graphs, node_budget, oversized="singleton")[0]
-    part = [graphs[i] for i in pack]
+    packs = [[graphs[i] for i in p]
+             for p in pack_graphs(graphs, node_budget, oversized="singleton")]
+    return next(p for p in packs
+                if not ragged or sum(g.num_nodes for g in p) % 64)
+
+
+def _packed_edges(replay, node_budget: int):
+    """That pack encoded as the service encodes it: real indices and
+    masks, bucketed capacities."""
+    from repro_torch.data.batching import bucket_for, encode_packed
+    part = _pack_graphs(replay, node_budget)
     return encode_packed(part, replay.normalizer, spec=bucket_for(part))
+
+
+def _tf32_split_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time for f32-accurate products on the tensor cores: the
+    split-TF32 route issues three tf32 products per f32 product, so
+    `flops` run at PEAK_TF32 / 3 = 165 TFLOP/s (above the fp32 CUDA
+    cores' 67)."""
+    return bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+
+
+def _issued_depth(D: int) -> int:
+    """Depth the kernels' products issue: D padded to 32 (their depth
+    chunks cover exactly that at D = 192, the model's width)."""
+    return -(-max(D, 1) // 32) * 32
+
+
+def _kernel_line(label, err, tol, ms, dev_ms, plain_ms, dev_plain,
+                 b_ms, b_by, fp32_ms, issued, split) -> str:
+    """One [kernels] line; dev_plain is device_ms() of the plain version."""
+    lost = ", records lost" if "records lost" in dev_plain[1] else ""
+    return (f"{label}: max_abs_err={err:.3e} (tol {tol:.3e}) kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms "
+            f"(device {dev_plain[0]:.4f}{lost}), bound {b_ms:.5f} ms ({b_by}, "
+            f"split tf32; fp32 bound {fp32_ms:.5f}), bound / call "
+            f"{b_ms / ms:.1%}, issued tf32 {issued / dev_ms / 1e9:.1f} "
+            f"TFLOP/s on the device; kernel device split: {split}")
+
+
+def _fault(kind, label, out, ref, tol) -> None:
+    """A planted fault must fail the 1e-5·max|ref| check."""
+    ratio = float((out - ref).abs().max()) / tol
+    log(f"[kernels] planted fault, {kind} {label}: {ratio:.1f} x the "
+        f"limit: {'caught' if ratio > 1 else 'MISSED'}")
+    if not ratio > 1:
+        raise AssertionError(f"{kind}: the check misses {label}")
 
 
 def check_graph_aggregate(gen) -> dict:
@@ -240,7 +293,7 @@ def check_graph_aggregate(gen) -> dict:
     B, D, F = DENSE_BATCH, FEATURES, FEATURES
     w = (torch.randn((D, F), generator=gen) / D ** 0.5).to(dev)
     row = None
-    for N in (17, 64):
+    for N in (17, 64, 100, 512):     # 512: the messages go through L2
         # kernel-graph density: about two in-edges per node
         adj = (torch.rand((B, N, N), generator=gen) < 2.0 / N).float()
         adj, x = adj.to(dev), torch.randn((B, N, D), generator=gen).to(dev)
@@ -250,29 +303,83 @@ def check_graph_aggregate(gen) -> dict:
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             tol = 1e-5 * max(1.0, float(ref.abs().max()))
+
             def run():
                 return ga.graph_aggregate(adj, x, w, mean=mean)
 
             def plain():
                 return ga.graph_aggregate_plain(adj, x, w, mean=mean)
             ms, plain_ms = time_ms(run), time_ms(plain)
-            (dev_ms, split), (dev_plain_ms, _) = device_ms(run), \
-                device_ms(plain)
+            (dev_ms, split), dev_plain = device_ms(run), device_ms(plain)
             nbytes = 4 * (B * N * N + B * N * D + D * F + B * N * F)
             flops = 2 * B * N * D * F + 2 * B * N * N * F
-            b_ms, b_by = bound(nbytes, flops)
-            log(f"[kernels] graph_aggregate B={B} N={N} D={D} F={F} "
-                f"{'mean' if mean else 'sum'}: max_abs_err={err:.3e} "
-                f"(tol {tol:.3e}) kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-                f"plain {plain_ms:.4f} ms (device {dev_plain_ms:.4f}), "
-                f"bound {b_ms:.4f} ms ({b_by}); kernel device split: {split}")
+            b_ms, b_by = _tf32_split_bound(nbytes, flops)
+            fp32_ms, _ = bound(nbytes, flops)
+            # issued: X·W and A·msg in 3 terms each over padded rows,
+            # depth and 64-channel tiles
+            np_, fp = -(-N // 64) * 64, -(-F // 64) * 64
+            issued = 2 * B * fp * np_ * 3 * (_issued_depth(D) + np_)
+            log("[kernels] " + _kernel_line(
+                f"graph_aggregate B={B} N={N} D={D} F={F} "
+                f"{'mean' if mean else 'sum'}", err, tol, ms, dev_ms,
+                plain_ms, dev_plain, b_ms, b_by, fp32_ms, issued, split))
             if not err <= tol:
                 raise AssertionError(
                     f"graph_aggregate N={N} mean={mean}: {err} > {tol}")
             if N == 64 and mean:
                 row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
+                # one adjacency entry flipped at a node of degree 1
+                deg = adj.sum(-1)
+                b, i = (int(v) for v in (deg == 1).nonzero()[0])
+                j = int((adj[b, i] == 0).nonzero()[0])
+                bad = adj.clone()
+                bad[b, i, j] = 1.0
+                _fault("graph_aggregate", f"adj[{b},{i},{j}] flipped 0 -> 1 "
+                       f"(node of degree 1)",
+                       ga.graph_aggregate(bad, x, w, mean=mean), ref, tol)
     return row
+
+
+def _sa_cases(replay):
+    """(label, SparseGraphBatch-like) of the segment_aggregate checks: the
+    replay's first packs at budgets 64 and 512 (bucketed capacities), a
+    pack at budget 512 encoded at its real node count (ragged: not a
+    multiple of 64), and one node with one self-edge."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    from repro_torch.data.batching import bucket_for, encode_packed
+    yield "pack", _packed_edges(replay, 64)
+    yield "pack", _packed_edges(replay, 512)
+    graphs = _pack_graphs(replay, 512, ragged=True)
+    spec = bucket_for(graphs)
+    n = sum(g.num_nodes for g in graphs)
+    yield "ragged pack", encode_packed(
+        graphs, replay.normalizer,
+        spec=dataclasses.replace(spec, node_capacity=n))
+    one = np.zeros(1, np.int32)
+    yield "one node", types.SimpleNamespace(
+        num_nodes=1, num_edges=1, node_mask=np.ones(1, np.float32),
+        edge_src=one, edge_dst=one, edge_mask=np.ones(1, np.float32))
+
+
+def _sa_edges(b, dev):
+    import torch
+    from repro_torch.kernels import segment_aggregate as sa
+    return sa.edge_csr(torch.from_numpy(b.edge_src).to(dev),
+                       torch.from_numpy(b.edge_dst).to(dev),
+                       torch.from_numpy(b.edge_mask).to(dev), b.num_nodes)
+
+
+def _sa_issued(nm, D, F) -> float:
+    """Tensor-core FLOPs the segment kernel issues: 3 tf32 products per
+    f32 product over every row tile with a real row, 64-channel tiles."""
+    import numpy as np
+    tiles = -(-len(nm) // 64)
+    active = sum(bool(np.any(nm[64 * t:64 * t + 64])) for t in range(tiles))
+    return 2 * 3 * active * 64 * (-(-F // 64) * 64) * _issued_depth(D)
 
 
 def check_segment_aggregate(gen, replay) -> dict:
@@ -283,13 +390,10 @@ def check_segment_aggregate(gen, replay) -> dict:
     w = (torch.randn((D, F), generator=gen) / D ** 0.5).to(dev)
     scale = torch.ones((F,), device=dev)
     row = None
-    for budget in (64, 512):
-        b = _packed_edges(replay, budget)
+    for label, b in _sa_cases(replay):
         M, E = b.num_nodes, b.num_edges
         nm = torch.from_numpy(b.node_mask).to(dev)
-        edges = sa.edge_csr(torch.from_numpy(b.edge_src).to(dev),
-                            torch.from_numpy(b.edge_dst).to(dev),
-                            torch.from_numpy(b.edge_mask).to(dev), M)
+        edges = _sa_edges(b, dev)
         x = torch.randn((M, D), generator=gen).to(dev)
         m_real, e_real = float(b.node_mask.sum()), float(b.edge_mask.sum())
         for mean in (True, False):
@@ -306,21 +410,46 @@ def check_segment_aggregate(gen, replay) -> dict:
             err = float((out - ref).abs().max())
             tol = 1e-5 * max(1.0, float(ref.abs().max()))
             ms, plain_ms = time_ms(run), time_ms(plain)
-            (dev_ms, split), (dev_plain_ms, _) = device_ms(run), \
-                device_ms(plain)
-            b_ms, b_by = _sa_bound(M, D, F, E, m_real, e_real, 4)
-            log(f"[kernels] segment_aggregate M={M} E={E} (real "
+            (dev_ms, split), dev_plain = device_ms(run), device_ms(plain)
+            (b_ms, b_by), fp32_ms = _sa_bound(M, D, F, E, m_real, e_real, 4)
+            log("[kernels] " + _kernel_line(
+                f"segment_aggregate {label} M={M} E={E} (real "
                 f"{int(m_real)} nodes, {int(e_real)} edges) D={D} F={F} "
-                f"{'mean' if mean else 'sum'}: max_abs_err={err:.3e} "
-                f"(tol {tol:.3e}) kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-                f"plain {plain_ms:.4f} ms (device {dev_plain_ms:.4f}), "
-                f"bound {b_ms:.4f} ms ({b_by}); kernel device split: {split}")
+                f"{'mean' if mean else 'sum'}", err, tol, ms, dev_ms,
+                plain_ms, dev_plain, b_ms, b_by, fp32_ms,
+                _sa_issued(b.node_mask, D, F), split))
             if not err <= tol:
                 raise AssertionError(
                     f"segment_aggregate M={M} mean={mean}: {err} > {tol}")
-            if budget == 512 and mean:
+            if label == "pack" and M == 512 and mean:
                 row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
+            if mean and M <= 512:
+                # the plan not taken: two launches with a message scratch
+                def run_two():
+                    return sa._launch(x, w, scale, edges, nm, "relu", mean,
+                                      two_launch=True)
+                two = run_two()
+                two_ms, (two_dev, two_split) = time_ms(run_two), \
+                    device_ms(run_two)
+                log(f"[kernels] segment_aggregate {label} M={M} mean, "
+                    f"fused launch {ms:.4f} ms (device {dev_ms:.4f}) vs "
+                    f"two launches {two_ms:.4f} ms (device {two_dev:.4f}: "
+                    f"{two_split}); two-launch max_abs_err "
+                    f"{float((two - ref).abs().max()):.3e}")
+        # one real edge (from a real node) left out of the CSR
+        src_real = b.node_mask[b.edge_src] != 0
+        e = int(((b.edge_mask != 0) & src_real).nonzero()[0][0])
+        cut = b.edge_mask.copy()
+        cut[e] = 0
+        cut_edges = sa.edge_csr(edges.gather, edges.scatter,
+                                torch.from_numpy(cut).to(dev), M)
+        ref = sa.segment_aggregate_plain(x, w, scale, edges.gather,
+                                         edges.scatter, edges.edge_mask, nm)
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        _fault("segment_aggregate", f"{label} M={M}: edge {e} left out of "
+               f"the CSR", sa.segment_aggregate(x, w, scale, cut_edges, nm),
+               ref, tol)
         # integer-valued inputs: every sum is exact, so bit-exact
         xi = torch.randint(-3, 4, (M, D), generator=gen).float().to(dev)
         wi = torch.randint(-5, 6, (D, F), generator=gen).float().to(dev)
@@ -334,8 +463,8 @@ def check_segment_aggregate(gen, replay) -> dict:
                     f"segment_aggregate M={M} mean={mean}: integer inputs "
                     f"not bit-exact (max diff "
                     f"{float((out - ref).abs().max())})")
-        log(f"[kernels] segment_aggregate M={M} integer inputs: bit-exact "
-            f"(mean and sum)")
+        log(f"[kernels] segment_aggregate {label} M={M} integer inputs: "
+            f"bit-exact (mean and sum)")
     return row
 
 
@@ -345,13 +474,15 @@ def _whole_programs():
             for i in range(WHOLE_PROGRAMS)]
 
 
-def _sa_bound(M, D, F, E, m_real, e_real, w_bytes) -> tuple[float, str]:
-    """Each input read once, the output written once; the f32 products of
-    the real rows and the edge sums (the activations are f32, so the
-    int8 variant's products are f32 too)."""
+def _sa_bound(M, D, F, E, m_real, e_real, w_bytes):
+    """((bound ms, what bounds it), fp32 bound ms): each input read once,
+    the output written once; the f32-accurate products of the real rows
+    (split tf32 on the tensor cores; the activations are f32, so the int8
+    variant's products are f32 too) and the edge sums."""
     nbytes = (4 * M * D + w_bytes * D * F + 4 * F + 4 * M + 4 * (M + 1)
               + 8 * E + 4 * M * F)
-    return bound(nbytes, 2 * m_real * D * F + 2 * e_real * F)
+    flops = 2 * m_real * D * F + 2 * e_real * F
+    return _tf32_split_bound(nbytes, flops), bound(nbytes, flops)[0]
 
 
 def check_segment_aggregate_i8(gen, replay, whole) -> dict:
@@ -375,9 +506,7 @@ def check_segment_aggregate_i8(gen, replay, whole) -> dict:
                      ("segmented", seg.inner)):
         M, E = b.num_nodes, b.num_edges
         nm = torch.from_numpy(b.node_mask).to(dev)
-        edges = sa.edge_csr(torch.from_numpy(b.edge_src).to(dev),
-                            torch.from_numpy(b.edge_dst).to(dev),
-                            torch.from_numpy(b.edge_mask).to(dev), M)
+        edges = _sa_edges(b, dev)
         x = torch.randn((M, D), generator=gen).to(dev)
         m_real, e_real = float(b.node_mask.sum()), float(b.edge_mask.sum())
         for variant, ww, ss, w_bytes in (("int8", w, scale, 1),
@@ -396,15 +525,14 @@ def check_segment_aggregate_i8(gen, replay, whole) -> dict:
             err = float((out - ref).abs().max())
             tol = 1e-5 * max(1.0, float(ref.abs().max()))
             ms, plain_ms = time_ms(run), time_ms(plain)
-            (dev_ms, split), (dev_plain_ms, _) = device_ms(run), \
-                device_ms(plain)
-            b_ms, b_by = _sa_bound(M, D, F, E, m_real, e_real, w_bytes)
-            log(f"[kernels] segment_aggregate {variant} {label} M={M} "
-                f"E={E} (real {int(m_real)} nodes, {int(e_real)} edges) "
-                f"D={D} F={F} mean: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
-                f"{plain_ms:.4f} ms (device {dev_plain_ms:.4f}), bound "
-                f"{b_ms:.5f} ms ({b_by}); kernel device split: {split}")
+            (dev_ms, split), dev_plain = device_ms(run), device_ms(plain)
+            (b_ms, b_by), fp32_ms = _sa_bound(M, D, F, E, m_real, e_real,
+                                              w_bytes)
+            log("[kernels] " + _kernel_line(
+                f"segment_aggregate {variant} {label} M={M} E={E} (real "
+                f"{int(m_real)} nodes, {int(e_real)} edges) D={D} F={F} "
+                f"mean", err, tol, ms, dev_ms, plain_ms, dev_plain, b_ms,
+                b_by, fp32_ms, _sa_issued(b.node_mask, D, F), split))
             if not err <= tol:
                 raise AssertionError(f"segment_aggregate {variant} {label}"
                                      f" M={M}: {err} > {tol}")

@@ -24,7 +24,7 @@ SOURCES = ("graph_aggregate", "segment_aggregate", "flash_attention",
            "flash_attention_sm90", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("row_tile.cuh",)
+_HEADERS = ("tf32_mma.cuh",)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -31,21 +31,45 @@ def graph_aggregate_plain(adj: torch.Tensor, x: torch.Tensor,
     return agg
 
 
-def _lib():
-    lib = build.load("graph_aggregate")
-    if lib.graph_aggregate_f32.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.graph_aggregate_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.graph_aggregate_f32.restype = i
-        lib.graph_aggregate_smem_bytes.argtypes = [i]
-        lib.graph_aggregate_smem_bytes.restype = i
-    return lib
+_fns = None
+_scratch_bytes: dict[tuple, int] = {}  # (device, B, N, D, F) -> bytes
+
+
+def _bind(lib):
+    """(graph_aggregate_f32, graph_aggregate_scratch_bytes) of a loaded
+    library, argument types set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.graph_aggregate_f32.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.graph_aggregate_f32.restype = i
+    lib.graph_aggregate_scratch_bytes.argtypes = [i] * 4
+    lib.graph_aggregate_scratch_bytes.restype = ctypes.c_longlong
+    return lib.graph_aggregate_f32, lib.graph_aggregate_scratch_bytes
+
+
+def _kernel():
+    """The entry points of `csrc/graph_aggregate.cu`, set up once."""
+    global _fns
+    if _fns is None:
+        _fns = _bind(build.load("graph_aggregate"))
+    return _fns
+
+
+def _check(name, t, shape, device) -> None:
+    if not (t.dtype is torch.float32 and t.shape == shape
+            and t.device == device and t.is_contiguous()):
+        raise ValueError(
+            f"graph_aggregate: {name} must be a contiguous float32 "
+            f"{tuple(shape)} tensor on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
 
 
 def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
                     act: str = "relu", mean: bool = True) -> torch.Tensor:
     """Fused transform+aggregate of one dense GraphSAGE hop; mean divides
-    each row by max(rowsum(adj[b]), 1). All inputs fp32 on one device."""
+    each row by max(rowsum(adj[b]), 1). All inputs fp32 on one device.
+    On the card, graphs too large for the kernel to keep their messages
+    on chip (N > 192 at D = 192) take a message scratch in device
+    memory, allocated for the call."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if x.device.type == "cpu":
@@ -55,26 +79,21 @@ def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
                          f"{x.device}")
     B, N, D = x.shape
     F = w.shape[1]
-    for name, t, shape in (("adj", adj, (B, N, N)), ("x", x, (B, N, D)),
-                           ("w", w, (D, F))):
-        if (t.device != x.device or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"graph_aggregate: {name} must be a contiguous float32 "
-                f"{shape} tensor on {x.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    lib = _lib()
-    smem = lib.graph_aggregate_smem_bytes(N)
-    limit = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"graph_aggregate: N={N} needs {smem} bytes of "
-                         f"shared memory, the card allows {limit}")
-    out = torch.empty((B, N, F), device=x.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.graph_aggregate_f32(adj.data_ptr(), x.data_ptr(),
-                                  w.data_ptr(), out.data_ptr(), B, N, D, F,
-                                  int(act == "relu"), int(mean), stream)
+    dev = x.device
+    _check("adj", adj, (B, N, N), dev)
+    _check("x", x, (B, N, D), dev)
+    _check("w", w, (D, F), dev)
+    fn, scratch_bytes = _kernel()
+    key = (dev.index, B, N, D, F)
+    nbytes = _scratch_bytes.get(key)
+    if nbytes is None:
+        nbytes = _scratch_bytes[key] = scratch_bytes(B, N, D, F)
+    scratch = (torch.empty(nbytes // 4, device=dev, dtype=torch.float32)
+               if nbytes else None)
+    out = torch.empty((B, N, F), device=dev, dtype=torch.float32)
+    err = fn(adj.data_ptr(), x.data_ptr(), w.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), B, N, D, F,
+             act == "relu", mean, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"graph_aggregate launch failed: CUDA error "
                            f"{err}")

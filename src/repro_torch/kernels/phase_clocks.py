@@ -1,0 +1,132 @@
+"""Where one block of the GraphSAGE kernels spends its cycles, on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.phase_clocks
+
+Builds `csrc/graph_aggregate.cu` and `csrc/segment_aggregate.cu` once more
+with `-DREPRO_PHASE_CLOCKS` (into `kernels/build/phase_clocks/`): block
+(0, 0) then records `clock64()` after a block barrier at each
+`REPRO_PHASE(i)` mark. Each case calls those builds' entry points
+directly (the wrappers keep the normal builds), a few times, and the phases of its last call are printed as cycles
+since the block's start (for a block that walks several tiles or graphs,
+those of its last one). The barriers the marks add cost a few hundred
+cycles in all; the normal build has no marks. It first prints, for the
+normal builds, how many tensor-core products (HGMMA) the SASS holds and
+how many waits for all of them (WARPGROUP.DEPBAR): one wait per product
+means the compiler serialized them (tf32_mma.cuh), and ptxas's advisories
+about wgmma say why. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import graph_aggregate as ga
+from repro_torch.kernels import segment_aggregate as sa
+
+OUT = os.path.join(build.BUILD_DIR, "phase_clocks")
+SEGMENT_PHASES = {1: "stage issued", 2: "operands landed", 3: "w split",
+                  4: "x split", 5: "products", 6: "messages kept",
+                  7: "cluster barrier", 10: "walk", 8: "outputs stored",
+                  9: "last barrier"}
+GRAPH_PHASES = {1: "stage issued", 2: "operands landed", 3: "W split",
+                4: "X split", 5: "X.W", 6: "msg^T split", 7: "A staged",
+                8: "A.msg", 10: "mean", 11: "outputs stored", 9: "end"}
+
+
+def _instrumented(name: str) -> ctypes.CDLL:
+    os.makedirs(OUT, exist_ok=True)
+    so = os.path.join(OUT, f"lib{name}.so")
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-DREPRO_PHASE_CLOCKS",
+                    "-o", so, os.path.join(build.CSRC, f"{name}.cu")],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(so)
+
+
+def _sass_waits() -> None:
+    reports = build.build(("graph_aggregate", "segment_aggregate"))
+    for name, report in sorted(reports.items()):
+        for line in report.splitlines():
+            if "wgmma" in line or "GMMA" in line:       # ptxas advisories
+                print(f"[ptxas] {name}: {line.strip()[:300]}", flush=True)
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for name in ("graph_aggregate", "segment_aggregate"):
+        sass = subprocess.run([tool, "-sass", build.library_path(name)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        print(f"[sass] {name}: {sass.count('HGMMA')} HGMMA, "
+              f"{sass.count('WARPGROUP.DEPBAR')} WARPGROUP.DEPBAR",
+              flush=True)
+
+
+def _phases(lib, fn, label: str, names: dict) -> None:
+    for _ in range(3):
+        if fn():
+            raise RuntimeError(f"{label}: launch failed")
+    torch.cuda.synchronize()
+    clocks = (ctypes.c_ulonglong * 16)()
+    if lib.repro_read_phase_clocks(clocks):
+        raise RuntimeError("reading the phase clocks failed")
+    t0 = clocks[0]
+    parts = [f"{name} {clocks[i] - t0}" for i, name in names.items()
+             if t0 <= clocks[i] < t0 + 10 ** 9]
+    print(f"[phases] {label}: cycles since the block's start: "
+          + ", ".join(parts), flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_clocks: needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    _sass_waits()
+    seg, graph = _instrumented("segment_aggregate"), \
+        _instrumented("graph_aggregate")
+    seg_f32, seg_i8, fused_max_rows = sa._bind(seg)
+    graph_f32, _ = ga._bind(graph)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(0)
+    D = F = 192
+    for M in (64, 512, 16384):              # fused, fused, two launches
+        x = torch.randn(M, D, generator=gen).cuda()
+        w = (torch.randn(D, F, generator=gen) / D ** 0.5).cuda()
+        wq = torch.randint(-127, 128, (D, F), generator=gen,
+                           dtype=torch.int8).cuda()
+        ones = torch.ones(F, device="cuda")
+        nm = torch.ones(M, device="cuda")
+        src, dst = (torch.randint(0, M, (2 * M,), generator=gen).cuda()
+                    for _ in range(2))
+        edges = sa.edge_csr(src, dst, torch.ones(2 * M, device="cuda"), M)
+        out = torch.empty(M, F, device="cuda")
+        msg = torch.empty(M, F, device="cuda") if M > fused_max_rows \
+            else None
+        for label, fn, ww, scale in (("f32", seg_f32, w, ones),
+                                     ("int8", seg_i8, wq, ones / 64)):
+            def run(fn=fn, ww=ww, scale=scale):
+                return fn(x.data_ptr(), ww.data_ptr(), scale.data_ptr(),
+                          nm.data_ptr(), edges.rowptr.data_ptr(),
+                          edges.src.data_ptr(), edges.weight.data_ptr(),
+                          None if msg is None else msg.data_ptr(),
+                          out.data_ptr(), M, D, F, 1, 1, stream)
+            _phases(seg, run, f"segment_aggregate {label} M={M}",
+                    SEGMENT_PHASES)
+    for N in (17, 64):
+        B = 128
+        adj = (torch.rand(B, N, N, generator=gen) < 2 / N).float().cuda()
+        x = torch.randn(B, N, D, generator=gen).cuda()
+        w = (torch.randn(D, F, generator=gen) / D ** 0.5).cuda()
+        out = torch.empty(B, N, F, device="cuda")
+
+        def run():
+            return graph_f32(adj.data_ptr(), x.data_ptr(), w.data_ptr(),
+                             out.data_ptr(), None, B, N, D, F, 1, 1, stream)
+        _phases(graph, run, f"graph_aggregate B={B} N={N}", GRAPH_PHASES)
+
+
+if __name__ == "__main__":
+    main()

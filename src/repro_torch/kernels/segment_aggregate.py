@@ -16,8 +16,9 @@ float32 `w` and `segment_aggregate_i8` for an int8 `w` (the int8 serving
 path; `w_scale` holds its per-channel scales). It walks each
 destination's edges in CSR order, so the caller groups the edges once
 per batch and direction with `edge_csr` and reuses the result across
-hops. `launches` and `launches_i8` count the launches of the two
-variants (one per call: the transform and the aggregation pass).
+hops. `launches` and `launches_i8` count the calls of the two variants
+that launched the kernel (one per call, whether it took one launch or
+two).
 """
 from __future__ import annotations
 
@@ -94,14 +95,36 @@ def segment_aggregate_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _lib():
-    lib = build.load("segment_aggregate")
-    if lib.segment_aggregate_f32.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.segment_aggregate_f32, lib.segment_aggregate_i8):
-            fn.argtypes = [p] * 9 + [i] * 5 + [p]
-            fn.restype = i
-    return lib
+_fns = None
+
+
+def _bind(lib):
+    """(segment_aggregate_f32, segment_aggregate_i8, the fused launch's
+    largest M) of a loaded library, argument types set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.segment_aggregate_f32, lib.segment_aggregate_i8):
+        fn.argtypes = [p] * 9 + [i] * 5 + [p]
+        fn.restype = i
+    lib.segment_aggregate_fused_max_rows.restype = i
+    return (lib.segment_aggregate_f32, lib.segment_aggregate_i8,
+            lib.segment_aggregate_fused_max_rows())
+
+
+def _kernel():
+    """The entry points of `csrc/segment_aggregate.cu`, set up once."""
+    global _fns
+    if _fns is None:
+        _fns = _bind(build.load("segment_aggregate"))
+    return _fns
+
+
+def _check(name, t, shape, dtype, device) -> None:
+    if not (t.dtype is dtype and t.shape == shape and t.device == device
+            and t.is_contiguous()):
+        raise ValueError(
+            f"segment_aggregate: {name} must be a contiguous {dtype} "
+            f"{tuple(shape)} tensor on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
 
 
 def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
@@ -110,7 +133,10 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
                       mean: bool = True) -> torch.Tensor:
     """Fused transform+aggregate of one sparse GraphSAGE hop over
     `edges` (see `edge_csr`). `w` is float32 or int8, with a float32
-    per-channel scale `w_scale` ([F] or [1, F])."""
+    per-channel scale `w_scale` ([F] or [1, F]). On the card, batches of
+    up to 512 nodes take one launch (the kernel keeps the messages on
+    chip); larger ones a transform and an aggregation launch with an
+    [M, F] message scratch between them."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if x.device.type == "cpu":
@@ -120,37 +146,42 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"segment_aggregate runs on cuda or cpu, not "
                          f"{x.device}")
-    if w.dtype not in (torch.float32, torch.int8):
+    return _launch(x, w, w_scale, edges, node_mask, act, mean)
+
+
+def _launch(x, w, w_scale, edges, node_mask, act, mean,
+            two_launch: bool = False) -> torch.Tensor:
+    """Checks the CUDA operands and launches the kernel: one launch where
+    M allows it, else (or with `two_launch`, which `chip_smoke.py` uses to
+    time the plan not taken) the transform and the aggregation with a
+    message scratch between them."""
+    int8 = w.dtype is torch.int8
+    if not (int8 or w.dtype is torch.float32):
         raise ValueError(f"segment_aggregate: w must be a contiguous "
                          f"float32 or int8 tensor, got {w.dtype}")
     M, D = x.shape
     F = w.shape[1]
     E = edges.src.shape[0]
     scale = w_scale.reshape(-1)
-    for name, t, shape, dtype in (
-            ("x", x, (M, D), torch.float32), ("w", w, (D, F), w.dtype),
-            ("w_scale", scale, (F,), torch.float32),
-            ("node_mask", node_mask, (M,), torch.float32),
-            ("rowptr", edges.rowptr, (M + 1,), torch.int32),
-            ("src", edges.src, (E,), torch.int32),
-            ("weight", edges.weight, (E,), torch.float32)):
-        if (t.device != x.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"segment_aggregate: {name} must be a contiguous {dtype} "
-                f"{shape} tensor on {x.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    lib = _lib()
-    msg = torch.empty((M, F), device=x.device, dtype=torch.float32)
-    out = torch.empty((M, F), device=x.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    int8 = w.dtype == torch.int8
-    fn = lib.segment_aggregate_i8 if int8 else lib.segment_aggregate_f32
-    err = fn(
+    dev = x.device
+    f32, i32 = torch.float32, torch.int32
+    _check("x", x, (M, D), f32, dev)
+    _check("w", w, (D, F), w.dtype, dev)
+    _check("w_scale", scale, (F,), f32, dev)
+    _check("node_mask", node_mask, (M,), f32, dev)
+    _check("rowptr", edges.rowptr, (M + 1,), i32, dev)
+    _check("src", edges.src, (E,), i32, dev)
+    _check("weight", edges.weight, (E,), f32, dev)
+    fn_f32, fn_i8, fused_max_rows = _kernel()
+    out = torch.empty((M, F), device=dev, dtype=f32)
+    msg = (torch.empty((M, F), device=dev, dtype=f32)
+           if two_launch or M > fused_max_rows else None)
+    err = (fn_i8 if int8 else fn_f32)(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), node_mask.data_ptr(),
         edges.rowptr.data_ptr(), edges.src.data_ptr(),
-        edges.weight.data_ptr(), msg.data_ptr(), out.data_ptr(), M, D, F,
-        int(act == "relu"), int(mean), stream)
+        edges.weight.data_ptr(), None if msg is None else msg.data_ptr(),
+        out.data_ptr(), M, D, F, act == "relu", mean,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"segment_aggregate launch failed: CUDA error "
                            f"{err}")

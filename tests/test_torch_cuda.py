@@ -189,6 +189,146 @@ def test_int8_cost_model_on_card_kernels_match_plain(layout):
     np.testing.assert_allclose(preds[0], preds[1], rtol=1e-5, atol=1e-5)
 
 
+# ------------------- split-TF32 tensor-core kernels at ragged shapes
+def _within_limit(out, ref):
+    """chip_smoke.py's check: max|out - ref| <= 1e-5 · max(1, max|ref|)."""
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ref.abs().max())), err
+
+
+def _real_inputs(M, D, F, E, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (M, D)).astype(np.float32)
+    w = (rng.normal(0, 1, (D, F)) / np.sqrt(D)).astype(np.float32)
+    g, sc = (rng.integers(0, M, E).astype(np.int32) for _ in range(2))
+    em = (rng.random(E) < 0.8).astype(np.float32)
+    nm = (rng.random(M) < 0.9).astype(np.float32)
+    return x, w, g, sc, em, nm
+
+
+# M = 1 .. 512 take the fused launch (a cluster of row tiles), 1000 the
+# two-launch plan; D, F = 100 are not multiples of 64 (F = 100 is also
+# not a multiple of 16: the int8 tile travels as 4-byte copies)
+SA_SHAPES = [(1, 192, 192), (63, 192, 192), (64, 192, 192),
+             (65, 192, 192), (512, 192, 192), (300, 100, 100),
+             (1000, 192, 192), (130, 100, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+@pytest.mark.parametrize("shape", SA_SHAPES, ids=str)
+def test_segment_aggregate_split_tf32_matches_plain(shape, weights):
+    _need_card()
+    M, D, F = shape
+    x, w, g, sc, em, nm = (_t(a) for a in _real_inputs(M, D, F, 2 * M,
+                                                       seed=M + D))
+    if weights == "int8":
+        w, s = _int8_weights(D, F, seed=M, pow2_scale=False)
+    else:
+        s = torch.ones((F,), device="cuda")
+    edges = sa.edge_csr(g, sc, em, M)
+    for mean in (True, False):
+        out = sa.segment_aggregate(x, w, s, edges, nm, mean=mean)
+        ref = sa.segment_aggregate_plain(x, w, s, g, sc, em, nm, mean=mean)
+        _within_limit(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [192, 1000])
+def test_segment_aggregate_all_masked_row_tile(M):
+    """Rows 64..127 masked: that row tile skips its product, and its
+    messages (act(0) = 0) still reach the destinations that read them."""
+    _need_card()
+    x, w, g, sc, em, nm = _real_inputs(M, 192, 192, 3 * M, seed=M)
+    nm[64:128] = 0.0
+    x, w, g, sc, em, nm = (_t(a) for a in (x, w, g, sc, em, nm))
+    s = torch.ones((192,), device="cuda")
+    out = sa.segment_aggregate(x, w, s, sa.edge_csr(g, sc, em, M), nm)
+    _within_limit(out, sa.segment_aggregate_plain(x, w, s, g, sc, em, nm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [65, 1000])
+def test_segment_aggregate_bitexact_on_integers_both_plans(M):
+    """Integer inputs through the fused launch (M = 65) and the two-launch
+    plan (M = 1000), f32 and int8 weights: bit-exact."""
+    _need_card()
+    x, w, _, g, sc, em, nm = (_t(a) for a in _sa_inputs(M, 192, 192, 2 * M,
+                                                        seed=M))
+    wq, sq = _int8_weights(192, 192, seed=M + 1, pow2_scale=True)
+    edges = sa.edge_csr(g, sc, em, M)
+    for ww, ss in ((w, torch.ones((192,), device="cuda")), (wq, sq)):
+        for mean in (True, False):
+            out = sa.segment_aggregate(x, ww, ss, edges, nm, mean=mean)
+            ref = sa.segment_aggregate_plain(x, ww, ss, g, sc, em, nm,
+                                             mean=mean)
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 17, 64, 100])
+@pytest.mark.parametrize("DF", [(192, 192), (100, 100)], ids=str)
+def test_graph_aggregate_split_tf32_matches_plain(N, DF):
+    _need_card()
+    D, F = DF
+    adj, x, w = (_t(a) for a in _ga_inputs(8, N, D, F, seed=N + D))
+    for mean in (True, False):
+        for act in ("relu", "none"):
+            out = ga.graph_aggregate(adj, x, w, act=act, mean=mean)
+            ref = ga.graph_aggregate_plain(adj, x, w, act=act, mean=mean)
+            _within_limit(out, ref)
+
+
+@pytest.mark.cuda
+def test_graph_aggregate_weighted_adjacency_takes_three_terms():
+    """A real-valued adjacency has a lo half: the kernel sees it and
+    issues the third product term."""
+    _need_card()
+    adj, x, w = _ga_inputs(4, 64, 192, 192, seed=5)
+    adj = adj * np.random.default_rng(6).uniform(0.1, 1.0, adj.shape)
+    adj, x, w = (_t(a.astype(np.float32)) for a in (adj, x, w))
+    out = ga.graph_aggregate(adj, x, w)
+    _within_limit(out, ga.graph_aggregate_plain(adj, x, w))
+
+
+# N > 192 (at D = 192) keeps the messages in a device scratch and walks
+# A·msg in chunks of source nodes; B = 48 graphs make some blocks reuse
+# their slice of it; N = 257 and D, F = 100 stage A and W by cp.async
+GA_LARGE = [(2, 193, 192, 192), (48, 256, 192, 192), (2, 512, 192, 192),
+            (2, 832, 192, 192), (2, 1000, 192, 192), (3, 257, 100, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GA_LARGE, ids=str)
+def test_graph_aggregate_large_graphs_take_the_scratch(shape):
+    _need_card()
+    B, N, D, F = shape
+    assert ga._kernel()[1](B, N, D, F) > 0      # the scratch plan
+    adj, x, w = (_t(a) for a in _ga_inputs(B, N, D, F, seed=N))
+    for mean in (True, False):
+        for act in ("relu", "none"):
+            out = ga.graph_aggregate(adj, x, w, act=act, mean=mean)
+            ref = ga.graph_aggregate_plain(adj, x, w, act=act, mean=mean)
+            _within_limit(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 512])
+def test_graph_aggregate_bitexact_on_integers_both_plans(N):
+    """Integer inputs, messages in the SM (N = 64) and in the scratch
+    (N = 512): every sum is exact, so bit-exact."""
+    _need_card()
+    rng = np.random.default_rng(N)
+    adj = (rng.random((4, N, N)) < 0.15).astype(np.float32)
+    x = rng.integers(-3, 4, (4, N, 192)).astype(np.float32)
+    w = rng.integers(-5, 6, (192, 192)).astype(np.float32)
+    adj, x, w = _t(adj), _t(x), _t(w)
+    for mean in (True, False):
+        out = ga.graph_aggregate(adj, x, w, mean=mean)
+        assert torch.equal(out, ga.graph_aggregate_plain(adj, x, w,
+                                                         mean=mean))
+
+
 # ------------------------------------------------ LM zoo: flash, ssd_scan
 # (B, Sq, Sk, H, KH, hd, causal, window, q_offset)
 FLASH_CUDA_CASES = [

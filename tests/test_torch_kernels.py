@@ -233,3 +233,128 @@ def test_edge_csr_matches_edge_loop(M, E):
         lo, hi = rowptr[d], rowptr[d + 1]
         assert csr.src[lo:hi].tolist() == want_src[d]
         assert csr.weight[lo:hi].tolist() == want_w[d]
+
+
+# ------------------------------------------ split-TF32 products, emulated
+# The CUDA kernels take their products on the tensor cores in tf32
+# (csrc/tf32_mma.cuh). These tests emulate that arithmetic on the CPU, so
+# a change to it can be tried here before the card: cvt.rna.tf32.f32 as
+# bit operations on f32 views, the tensor cores' tf32 products (exact in
+# f32) summed in float64 and rounded once to f32 (the card sums in f32,
+# ~2^-24 relative per add, far below the limit below). Each is held to
+# chip_smoke.py's check: max|out - ref| <= 1e-5 · max(1, max|ref|), ref the
+# plain version in f32.
+LIMIT = 1e-5
+
+
+def _tf32_rna(a):
+    """cvt.rna.tf32.f32: round to 10 explicit mantissa bits, ties away
+    from zero; the low 13 bits come out 0 (finite inputs)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a):
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(np.asarray(a, np.float32) - hi)
+
+
+def _tf32_product(a, b, terms):
+    """a @ b as the kernels issue it: 1 = one tf32 product, 2 = a_hi b_hi
+    + a_hi b_lo (a exact in tf32), 3 = + a_lo b_hi."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    f64 = np.float64
+    out = a_hi.astype(f64) @ b_hi.astype(f64)
+    if terms >= 2:
+        out += a_hi.astype(f64) @ b_lo.astype(f64)
+    if terms >= 3:
+        out += a_lo.astype(f64) @ b_hi.astype(f64)
+    return out.astype(np.float32)
+
+
+def _ratio(out, ref):
+    """max|out - ref| over chip_smoke.py's limit."""
+    return float(np.abs(out - ref).max()) / (
+        LIMIT * max(1.0, float(np.abs(ref).max())))
+
+
+def _sa_emulated(x, w, scale, g, sc, em, nm, terms, mean=True):
+    msg = np.maximum(_tf32_product(x * nm[:, None], w * scale, terms), 0)
+    out = np.zeros(msg.shape, np.float64)
+    np.add.at(out, sc, msg[g].astype(np.float64) * em[:, None])
+    if mean:
+        deg = np.zeros(msg.shape[0], np.float64)
+        np.add.at(deg, sc, em)
+        out = out / np.maximum(deg, 1.0)[:, None]
+    return out.astype(np.float32)
+
+
+def _pack_inputs(seed=11):
+    """The replay pack's shape: M=512, D=F=192, ~2 edges per node."""
+    rng = np.random.default_rng(seed)
+    M, D, F, E = 512, 192, 192, 1024
+    x = rng.normal(0, 1, (M, D)).astype(np.float32)
+    w = (rng.normal(0, 1, (D, F)) / np.sqrt(D)).astype(np.float32)
+    g, sc = (rng.integers(0, M, E).astype(np.int32) for _ in range(2))
+    em = (rng.random(E) < 0.8).astype(np.float32)
+    nm = (rng.random(M) < 0.9).astype(np.float32)
+    return x, w, np.ones((1, F), np.float32), g, sc, em, nm
+
+
+def test_split_tf32_segment_aggregate_emulated_at_the_pack():
+    """At the replay pack, one tf32 product fails the check and the
+    three-term split stays well inside it."""
+    args = _pack_inputs()
+    ref = _port_sa(*args).numpy()
+    single = _ratio(_sa_emulated(*args, terms=1), ref)
+    split = _ratio(_sa_emulated(*args, terms=3), ref)
+    print(f"segment_aggregate M=512: one tf32 product {single:.2f}x the "
+          f"limit, split tf32 {split:.4f}x")
+    assert single > 1.0
+    assert split < 0.1
+
+
+def test_split_tf32_graph_aggregate_emulated():
+    """graph_aggregate at B=8, N=64, D=F=192: X·W in three terms, then
+    the exact 0/1 adjacency times msg in two (A msg_hi + A msg_lo)."""
+    rng = np.random.default_rng(12)
+    B, N, D, F = 8, 64, 192, 192
+    adj = (rng.random((B, N, N)) < 2.0 / N).astype(np.float32)
+    x = rng.normal(0, 1, (B, N, D)).astype(np.float32)
+    w = (rng.normal(0, 1, (D, F)) / np.sqrt(D)).astype(np.float32)
+    assert not _split(adj)[1].any()                 # exact in tf32
+    ref = ga.graph_aggregate(_t(adj), _t(x), _t(w)).numpy()
+    deg = np.maximum(adj.sum(-1, keepdims=True), 1.0)
+
+    def emulated(t1, t2):
+        msg = np.maximum(_tf32_product(x, w, t1), 0)
+        return np.stack([_tf32_product(adj[b], msg[b], t2)
+                         for b in range(B)]) / deg
+    single = _ratio(emulated(1, 1), ref)
+    split = _ratio(emulated(3, 2), ref)
+    print(f"graph_aggregate N=64: one tf32 product each {single:.2f}x the "
+          f"limit, split tf32 (3 + 2 terms) {split:.4f}x")
+    assert single > 1.0
+    assert split < 0.1
+
+
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+def test_split_tf32_integer_inputs_are_exact(weights):
+    """The bit-exact checks' inputs (x in [-3, 3]; w in [-5, 5], or int8
+    times 2^-6..2^0) have no lo half, and the split products equal the
+    plain version bit for bit."""
+    x, w, s, g, sc, em, nm = _sa_inputs(128, 64, 96, 300, seed=13,
+                                        integer=True)
+    if weights == "int8":
+        wq, s = _int8_weights(64, 96, seed=14, pow2_scale=True)
+        w = wq.astype(np.float32)
+    for a in (x * nm[:, None], w * s):
+        assert not _split(a)[1].any()
+    plain_w = wq if weights == "int8" else w
+    exact = (x * nm[:, None]).astype(np.float64) @ (w * s).astype(np.float64)
+    assert np.array_equal(_tf32_product(x * nm[:, None], w * s, 3),
+                          exact.astype(np.float32))
+    for mean in (True, False):
+        ref = _port_sa(x, plain_w, s, g, sc, em, nm, mean=mean).numpy()
+        assert np.array_equal(
+            _sa_emulated(x, w, s, g, sc, em, nm, terms=3, mean=mean), ref)
