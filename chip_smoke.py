@@ -41,13 +41,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
              as through the sparse service.
 7. zoo-kernels — the LM zoo's kernels against their plain versions:
              `flash_attention` at h2o-danube-3-4b's layer shape (B=2,
-             S=8192, H=32, KH=8, hd=120, causal, window 4096, bf16: the
-             tensor-core kernel), at hd=128 and non-causal (bf16) and in
-             f32 (the CUDA-core kernel) at smaller S, timed beside
-             PyTorch's scaled_dot_product_attention on the same inputs
-             (the yardstick only), each held element by element; at
-             the layer shape, planted faults (window off by one, 64 keys
-             left out) must fail that check; `ssd_scan` at
+             S=8192, H=32, KH=8, hd=120, causal, window 4096) in bf16
+             (the tensor-core kernel) and in f32 (the split-TF32 kernel),
+             at hd=128 and non-causal (bf16) and at S=1024 in f32 (hd 120
+             and 64, q x 1 and x 3), timed beside PyTorch's
+             scaled_dot_product_attention on the same inputs (the
+             yardstick only), each held element by element; at the layer
+             shape, in both dtypes, planted faults (window off by one, 64
+             keys left out) must fail that check; `ssd_scan` at
              Mamba2-2.7b's full shapes (B=2, nc=32, H=80, N=128, P=64),
              bit-exact.
 8. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
@@ -64,6 +65,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
              same model: batch 4, prompt 512, 64 greedy decode steps;
              prefill on 511 tokens + decode of token 512 agrees with the
              forward's last-position logits.
+10. lm-forward-f32 — the same model in f32 (its seed-0 weights cast, the
+             bf16 ones released): `loss_fn` over the same 2 x 8192 tokens
+             with the flash kernel (24 launches of the split-TF32 kernel)
+             and with `chunked_attention`, held as in 8 to f32 limits.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -709,13 +714,32 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 64
 # so the layer check (LAYER_RMS_RTOL) is the one that catches a wrong
 # kernel; the planted faults show what these two catch.
 LM_LOSS_TOL, LM_LOGIT_RTOL = 1e-3, 0.025
+# The same in f32 ([lm-forward-f32]): both paths run the same f32 ops but
+# attention, whose outputs agree within 2e-5·|ref| + 5e-6 per element
+# (FLASH_TOL; f32 sums in another order, ~1e-7 relative, plus the split
+# TF32's dropped terms, ~1e-6); 24 residual layers that add such a
+# difference without amplifying it stay below 24 · 2e-5 ≈ 5e-4 of the
+# logits: max|Δlogits| <= 5e-4 · max|logits|. The loss is a mean over
+# 16383 tokens of log-softmax terms, each moved at most 2 max|Δlogits|;
+# its own f32 rounding is ~1e-6 of ~11, so |Δloss| <= 1e-4 leaves two
+# orders of magnitude for the attention's share.
+LM_F32_LOSS_TOL, LM_F32_LOGIT_RTOL = 1e-4, 5e-4
 # flash_attention checks: (label, B, S, H, KH, hd, causal, window, dtype,
 # timed calls); the first is h2o-danube-3-4b's layer, the table's row
 FLASH_CASES = (
     ("layer", LM_BATCH, LM_SEQ, 32, 8, 120, True, 4096, "bfloat16", 5),
     ("hd128", 2, 2048, 32, 8, 128, True, None, "bfloat16", 10),
     ("non-causal", 2, 1024, 32, 8, 120, False, None, "bfloat16", 10),
-    ("f32", 1, 1024, 32, 8, 120, True, 256, "float32", 10))
+    ("f32", 1, 1024, 32, 8, 120, True, 256, "float32", 10),
+    ("f32-layer", 2, 8192, 32, 8, 120, True, 4096, "float32", 3),
+    ("f32-hd64", 1, 1024, 32, 8, 64, True, 256, "float32", 10),
+    ("f32-q3", 1, 1024, 32, 8, 120, True, 256, "float32", 10))
+# q is drawn N(0, 1) times this (1 elsewhere): q x 3 makes the scores
+# larger, and exp turns a score's error into most of the output's
+FLASH_Q_SCALE = {"f32-q3": 3.0}
+# the cases whose planted faults are checked: the model's layer, bf16 and
+# f32
+FLASH_FAULT_CASES = ("layer", "f32-layer")
 SSD_SHAPE = (2, 32, 80, 128, 64)    # B, nc, H, N, P: Mamba2-2.7b, 8192 tokens
 # flash_attention vs. its plain version, element by element:
 # |out - ref| <= rtol·|ref| + atol. Both take the same f32 arithmetic and
@@ -734,6 +758,10 @@ FAULT_TILE = 64
 # which gave 0.0031 on random inputs of the layer's scale (my CPU run);
 # a window one key tile short moves it by ~0.09.
 LAYER_RMS_RTOL = 2.0 ** -6
+# In f32 the two differ only in the order of f32 sums and the split
+# TF32's dropped terms (~1e-6 relative); 2^-16 (1.5e-5) still lies four
+# orders of magnitude below what a window one key tile short moves.
+LAYER_RMS_RTOL_F32 = 2.0 ** -16
 
 
 def _attn_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
@@ -786,7 +814,7 @@ def _attention_rows(q, k, v, keep):
     return (torch.softmax(s, dim=-1) @ vf).transpose(1, 2).to(q.dtype)
 
 
-def _flash_faults(q, k, v, out, ref, window, rtol, atol) -> None:
+def _flash_faults(label, q, k, v, out, ref, window, rtol, atol) -> None:
     """Shows that the element-wise check fails a wrong kernel at this
     shape: the kernel with its window one key off either way, and the
     last query tile with one key tile inside the window left out."""
@@ -804,7 +832,7 @@ def _flash_faults(q, k, v, out, ref, window, rtol, atol) -> None:
     rows = (q[:, -FAULT_TILE:], k, v)
     ok, err, worst = _within(out[:, -FAULT_TILE:],
                              _attention_rows(*rows, keep), rtol, atol)
-    log(f"[zoo-kernels] flash_attention layer, last query tile vs. the "
+    log(f"[zoo-kernels] flash_attention {label}, last query tile vs. the "
         f"same rows computed apart: max_abs_err={err:.3e} (worst "
         f"{worst:.3f} of the limit)")
     if not ok:
@@ -816,17 +844,20 @@ def _flash_faults(q, k, v, out, ref, window, rtol, atol) -> None:
                              _attention_rows(*rows, keep), rtol, atol)
     caught.append((f"key tile {drop}..{drop + FAULT_TILE - 1} left out",
                    ok, err, worst))
-    for label, ok, err, worst in caught:
-        log(f"[zoo-kernels] planted fault, {label}: max_abs_err={err:.3e} "
-            f"({worst:.1f} x the limit): {'MISSED' if ok else 'caught'}")
+    for fault, ok, err, worst in caught:
+        log(f"[zoo-kernels] planted fault at {label}, {fault}: "
+            f"max_abs_err={err:.3e} ({worst:.1f} x the limit): "
+            f"{'MISSED' if ok else 'caught'}")
         if ok:
-            raise AssertionError(f"flash_attention check misses: {label}")
+            raise AssertionError(f"flash_attention {label} check misses: "
+                                 f"{fault}")
 
 
 def check_flash_attention() -> dict:
     """Each FLASH_CASES case: kernel vs plain, element by element, timed
     beside the plain version and SDPA. Returns the kernels-line rows of
-    the two routes: bf16 (tensor cores) at the layer shape, f32."""
+    the two routes at the layer shape: bf16 ("layer") and f32
+    ("f32-layer")."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -835,7 +866,8 @@ def check_flash_attention() -> dict:
     for label, B, S, H, KH, hd, causal, window, dt, iters in FLASH_CASES:
         rtol, atol = FLASH_TOL[dt]
         dt = getattr(torch, dt)
-        q = torch.randn((B, S, H, hd), generator=gen, device=DEVICE).to(dt)
+        q = (torch.randn((B, S, H, hd), generator=gen, device=DEVICE)
+             * FLASH_Q_SCALE.get(label, 1.0)).to(dt)
         k = torch.randn((B, S, KH, hd), generator=gen, device=DEVICE).to(dt)
         v = torch.randn((B, S, KH, hd), generator=gen, device=DEVICE).to(dt)
 
@@ -852,8 +884,10 @@ def check_flash_attention() -> dict:
 
         def library():
             return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
-        lib_err = float((library().transpose(1, 2).float()
-                         - ref.float()).abs().max())
+        # SDPA under the same element-wise limit: how far an independent
+        # implementation in the same dtype lands from the plain version
+        _, lib_err, lib_worst = _within(library().transpose(1, 2), ref,
+                                        rtol, atol)
         ms = time_ms(run, warmup=1, iters=iters)
         plain_ms = time_ms(plain, warmup=1, iters=max(1, iters // 5))
         lib_ms = time_ms(library, warmup=1, iters=iters)
@@ -865,30 +899,37 @@ def check_flash_attention() -> dict:
         flops = 4 * hd * pairs * B * H
         nbytes = q.element_size() * 2 * hd * (B * S * H + B * S * KH)
         bf16 = dt == torch.bfloat16
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S
-                           if bf16 else PEAK_FP32_FLOP_PER_S)
+        # f32: split TF32 (three tf32 products per f32 product), the fp32
+        # CUDA cores' bound printed beside it
+        b_ms, b_by = (bound(nbytes, flops, PEAK_BF16_FLOP_PER_S) if bf16
+                      else _tf32_split_bound(nbytes, flops))
+        fp32_ms, _ = bound(nbytes, flops)
         route = ("flash_attention_sm90.cu, tensor cores" if bf16
-                 else "flash_attention.cu, CUDA cores")
+                 else "flash_attention_tf32.cu, split-TF32 tensor cores")
         log(f"[zoo-kernels] flash_attention {label} B={B} S={S} H={H} "
             f"KH={KH} hd={hd} causal={causal} window={window} "
-            f"{str(dt).removeprefix('torch.')} ({route}): kernel {ms:.4f} "
+            f"{str(dt).removeprefix('torch.')}, q x "
+            f"{FLASH_Q_SCALE.get(label, 1.0):g} ({route}): kernel {ms:.4f} "
             f"ms call, {flops / ms / 1e9:.1f} TFLOP/s, bound / call "
-            f"{b_ms / ms:.1%}; max_abs_err={err:.3e} "
+            f"{b_ms / ms:.1%}, bound / device {b_ms / dev_ms:.1%}; "
+            f"max_abs_err={err:.3e} "
             f"(|out - ref| <= {rtol:.3e}·|ref| + {atol:.0e}: worst "
             f"{worst:.3f} of the limit; max|ref| "
             f"{float(ref.float().abs().max()):.3f}, median |ref| "
             f"{float(ref.float().abs().median()):.4f}) kernel device "
             f"{dev_ms:.4f} ms [{split}], plain {plain_ms:.4f} ms (device "
             f"{dev_plain_ms:.4f}), sdpa {lib_ms:.4f} ms (device "
-            f"{dev_lib_ms:.4f}, max_abs_err vs plain {lib_err:.3e}; "
-            f"{lib_split[:100]}), bound {b_ms:.4f} ms ({b_by}; {pairs} "
-            f"pairs per head, {flops:.4e} FLOP, {nbytes} bytes)")
+            f"{dev_lib_ms:.4f}, max_abs_err vs plain {lib_err:.3e}, worst "
+            f"{lib_worst:.3f} of the limit; "
+            f"{lib_split[:100]}), bound {b_ms:.4f} ms ({b_by}"
+            f"{'' if bf16 else f', split tf32; fp32 bound {fp32_ms:.4f}'}"
+            f"; {pairs} pairs per head, {flops:.4e} FLOP, {nbytes} bytes)")
         if not ok:
             raise AssertionError(f"flash_attention {label}: worst "
                                  f"{worst} of the limit")
-        if label == "layer":
-            _flash_faults(q, k, v, out, ref, window, rtol, atol)
-        if label in ("layer", "f32"):
+        if label in FLASH_FAULT_CASES:
+            _flash_faults(label, q, k, v, out, ref, window, rtol, atol)
+        if label in ("layer", "f32-layer"):
             rows[label] = {"max_abs_err": err, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": lib_ms}
@@ -991,32 +1032,40 @@ def _rel_rms(out, ref) -> float:
     return float((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
 
 
-def _layer_hold(cfg, seen) -> None:
+def _lm_limits(cfg) -> tuple[float, float, float]:
+    """(|Δloss| limit, max|Δlogits| limit / max|logits|, layer-0 rms
+    limit) of kernel vs. chunked_attention in the model's dtype."""
+    if cfg.dtype == "float32":
+        return LM_F32_LOSS_TOL, LM_F32_LOGIT_RTOL, LAYER_RMS_RTOL_F32
+    return LM_LOSS_TOL, LM_LOGIT_RTOL, LAYER_RMS_RTOL
+
+
+def _layer_hold(cfg, seen, tag="lm-forward") -> None:
     """Layer 0's attention at the full shape, on the inputs the model gave
     the kernel: kernel vs. its plain version element by element, and vs.
     chunked_attention (the flag off) as a relative rms error, which each
     planted fault must exceed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import chunked_attention
+    rms_tol = _lm_limits(cfg)[2]
     q, k, v, kw = seen["q"], seen["k"], seen["v"], seen["kw"]
     out = fa.flash_attention(q, k, v, **kw)
     ok, err, worst = _within(out, fa.flash_attention_plain(q, k, v, **kw),
                              *FLASH_TOL[cfg.dtype])
     ref = chunked_attention(q, k, v, **kw)
     rel = _rel_rms(out, ref)
-    log(f"[lm-forward] layer 0 attention {tuple(q.shape)} {kw}: kernel vs "
-        f"plain max_abs_err={err:.3e} (worst {worst:.3f} of the limit); "
-        f"kernel vs chunked_attention rms(Δ)/rms(ref) {rel:.4e} (limit "
-        f"{LAYER_RMS_RTOL:.4e})")
-    if not (ok and rel <= LAYER_RMS_RTOL):
-        raise AssertionError("lm-forward: layer 0 attention out of "
-                             "tolerance")
+    log(f"[{tag}] layer 0 attention {tuple(q.shape)} {q.dtype} {kw}: "
+        f"kernel vs plain max_abs_err={err:.3e} (worst {worst:.3f} of the "
+        f"limit); kernel vs chunked_attention rms(Δ)/rms(ref) {rel:.4e} "
+        f"(limit {rms_tol:.4e})")
+    if not (ok and rel <= rms_tol):
+        raise AssertionError(f"{tag}: layer 0 attention out of tolerance")
     for label, fault in _model_faults():
         frel = _rel_rms(fault(q, k, v, **kw), ref)
-        log(f"[lm-forward] planted fault, {label}: layer 0 rms(Δ)/rms(ref) "
-            f"{frel:.4e}: {'caught' if frel > LAYER_RMS_RTOL else 'MISSED'}")
-        if not frel > LAYER_RMS_RTOL:
-            raise AssertionError(f"lm-forward: layer check misses {label}")
+        log(f"[{tag}] planted fault, {label}: layer 0 rms(Δ)/rms(ref) "
+            f"{frel:.4e}: {'caught' if frel > rms_tol else 'MISSED'}")
+        if not frel > rms_tol:
+            raise AssertionError(f"{tag}: layer check misses {label}")
 
 
 def _forward(params, cfg, batch):
@@ -1029,13 +1078,21 @@ def _forward(params, cfg, batch):
     return loss, last
 
 
-def lm_forward(cfg, params) -> dict:
+def lm_forward(cfg, params, tag="lm-forward") -> dict:
+    """`loss_fn` over LM_BATCH x LM_SEQ tokens with the flash kernel and
+    with chunked_attention, in the model's dtype: one launch per layer of
+    the route of that dtype (bf16: the tensor-core kernel, f32: the
+    split-TF32 one), agreement within that dtype's limits, layer 0 held
+    apart, planted faults. Returns the flash run's launch counts."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
+    loss_tol, logit_rtol, _ = _lm_limits(cfg)
+    route = "flash_attention_f32" if cfg.dtype == "float32" \
+        else "flash_attention_tc"
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to(DEVICE)
     batch = {"tokens": tokens}
@@ -1064,16 +1121,16 @@ def lm_forward(cfg, params) -> dict:
         busy = sum(us for _, us in prof.values()) / 1e6
         top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
         label = "flash kernel" if flag else "chunked_attention"
-        log(f"[lm-forward] loss_fn over {LM_BATCH} x {LM_SEQ} tokens with "
-            f"{label}: loss {loss:.6f}, wall {wall:.3f} s per forward, "
-            f"device {busy:.3f} s, launches {launches}, peak memory "
-            f"{peak / 2**30:.2f} GiB")
+        log(f"[{tag}] loss_fn over {LM_BATCH} x {LM_SEQ} tokens in "
+            f"{cfg.dtype} with {label}: loss {loss:.6f}, wall {wall:.3f} s "
+            f"per forward, device {busy:.3f} s, launches {launches}, peak "
+            f"memory {peak / 2**30:.2f} GiB")
         for name, (count, us) in top:
-            log(f"[lm-forward]   {us / 1e3:10.3f} ms {count:5d}x  "
+            log(f"[{tag}]   {us / 1e3:10.3f} ms {count:5d}x  "
                 f"{_short(name)}")
         if not (np.isfinite(loss) and torch.isfinite(last).all()
                 and last.shape == (LM_BATCH, 1, cfg.vocab_size)):
-            raise AssertionError(f"lm-forward {label}: non-finite output")
+            raise AssertionError(f"{tag} {label}: non-finite output")
         res[flag] = {"loss": loss, "last": last, "launches": launches,
                      "wall": wall}
     scale = float(res[False]["last"].abs().max())
@@ -1081,24 +1138,22 @@ def lm_forward(cfg, params) -> dict:
     def caught(loss, last) -> tuple[bool, str]:
         dloss = abs(loss - res[False]["loss"])
         dlogit = float((last - res[False]["last"]).abs().max())
-        return (not (dloss <= LM_LOSS_TOL
-                     and dlogit <= LM_LOGIT_RTOL * scale),
-                f"|Δloss| {dloss:.3e} (tol {LM_LOSS_TOL:.1e}), max|Δlogits| "
-                f"{dlogit:.4e} (tol {LM_LOGIT_RTOL * scale:.4e}, max|logits| "
+        return (not (dloss <= loss_tol and dlogit <= logit_rtol * scale),
+                f"|Δloss| {dloss:.3e} (tol {loss_tol:.1e}), max|Δlogits| "
+                f"{dlogit:.4e} (tol {logit_rtol * scale:.4e}, max|logits| "
                 f"{scale:.4f})")
     off, text = caught(res[True]["loss"], res[True]["last"])
-    log(f"[lm-forward] flash kernel vs chunked_attention: {text}")
+    log(f"[{tag}] flash kernel vs chunked_attention: {text}")
     if off:
-        raise AssertionError("lm-forward: kernel vs chunked out of tolerance")
+        raise AssertionError(f"{tag}: kernel vs chunked out of tolerance")
     n = res[True]["launches"]["flash_attention"]
-    n_tc = res[True]["launches"]["flash_attention_tc"]
-    if (n != cfg.num_layers or n_tc != n
+    n_route = res[True]["launches"][route]
+    if (n != cfg.num_layers or n_route != n
             or res[False]["launches"]["flash_attention"]):
-        raise AssertionError(f"lm-forward: {n} flash launches ({n_tc} on "
-                             f"the tensor-core kernel), expected "
-                             f"{cfg.num_layers}, all on it (and 0 with the "
-                             f"flag off)")
-    _layer_hold(cfg, seen)
+        raise AssertionError(f"{tag}: {n} flash launches ({n_route} of "
+                             f"{route}), expected {cfg.num_layers}, all of "
+                             f"it (and 0 with the flag off)")
+    _layer_hold(cfg, seen, tag)
     seen.clear()
     # what the end-to-end limits make of the planted faults (reported;
     # the layer check above is the one held to catch them)
@@ -1106,9 +1161,37 @@ def lm_forward(cfg, params) -> dict:
     for label, fault in _model_faults():
         with _flash_in_model(fault):
             hit, text = caught(*_forward(params, c, batch))
-        log(f"[lm-forward] planted fault, {label}, end to end: {text}: "
+        log(f"[{tag}] planted fault, {label}, end to end: {text}: "
             f"{'caught' if hit else 'MISSED'}")
     return res[True]["launches"]
+
+
+def as_f32(cfg, params):
+    """The f32 configuration of the model and its parameters: the same
+    (seed-0, bf16) weights cast to f32, tensor by tensor; the bf16 tree
+    is emptied as it goes, so that both never sit whole on the card."""
+    import dataclasses
+
+    import torch
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            for key in list(tree):
+                tree[key] = cast(tree[key])
+            return tree
+        if isinstance(tree, (list, tuple)):
+            out = [cast(t) for t in tree]
+            return out if isinstance(tree, list) else tuple(out)
+        return tree.float() if tree.is_floating_point() else tree
+    t0 = time.perf_counter()
+    f32 = cast(params)
+    torch.cuda.synchronize()
+    from repro_torch.models import lm
+    n = lm.param_count(f32)
+    log(f"[lm-forward-f32] {ARCH} in float32: the seed-0 weights cast, "
+        f"{n} params, {4 * n / 2**30:.2f} GiB, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return dataclasses.replace(cfg, dtype="float32"), f32
 
 
 # --------------------------------------------------------------------- 9
@@ -1246,16 +1329,20 @@ def main() -> int:
     # 7-9: the LM zoo
     flash = check_flash_attention()
     rows["flash_attention"], rows["flash_attention_f32"] = (
-        flash["layer"], flash["f32"])
+        flash["layer"], flash["f32-layer"])
     rows["ssd_scan"] = check_ssd_scan()
     with torch.inference_mode():
         cfg, params = _lm_model()
         launches = lm_forward(cfg, params)      # the main path's counts
         lm_serve(cfg, params)
+        # 10: the same model in f32, on the f32 route
+        cfg32, params = as_f32(cfg, params)
+        launches32 = lm_forward(cfg32, params, "lm-forward-f32")
+        del params
     rows["flash_attention"]["launches"] = launches["flash_attention_tc"]
-    rows["flash_attention_f32"]["launches"] = launches["flash_attention_f32"]
+    rows["flash_attention_f32"]["launches"] = launches32[
+        "flash_attention_f32"]
     rows["ssd_scan"]["launches"] = launches["ssd_scan"]   # on no path: 0
-    del params
 
     rows["graph_aggregate"].update(launches=dense["launches"][
         "graph_aggregate"])
@@ -1273,7 +1360,7 @@ def main() -> int:
              "src/repro/kernels/segment_aggregate/kernel.py:89"),
             ("flash_attention", "flash_attention_sm90",
              "src/repro/kernels/flash_attention/kernel.py:79"),
-            ("flash_attention_f32", "flash_attention",
+            ("flash_attention_f32", "flash_attention_tf32",
              "src/repro/kernels/flash_attention/kernel.py:79"),
             ("ssd_scan", "ssd_scan",
              "src/repro/kernels/ssd_scan/kernel.py:48")):

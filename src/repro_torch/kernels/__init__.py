@@ -3,9 +3,9 @@ reference, each beside its plain PyTorch version:
 
   graph_aggregate   — fused dense GraphSAGE hop   (csrc/graph_aggregate.cu)
   segment_aggregate — fused sparse GraphSAGE hop  (csrc/segment_aggregate.cu)
-  flash_attention   — forward attention of the LM zoo: bf16 on the
-                      tensor cores (csrc/flash_attention_sm90.cu), f32 on
-                      the CUDA cores (csrc/flash_attention.cu)
+  flash_attention   — forward attention of the LM zoo on the tensor
+                      cores: bf16 (csrc/flash_attention_sm90.cu), f32 in
+                      split TF32 (csrc/flash_attention_tf32.cu)
   ssd_scan          — Mamba2 inter-chunk state recurrence (csrc/ssd_scan.cu)
 
 Sources build with nvcc at first CUDA use (`build.py`) into

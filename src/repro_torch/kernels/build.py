@@ -20,7 +20,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
-SOURCES = ("graph_aggregate", "segment_aggregate", "flash_attention",
+SOURCES = ("graph_aggregate", "segment_aggregate", "flash_attention_tf32",
            "flash_attention_sm90", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -79,6 +79,18 @@ def build(names=SOURCES) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def check_one_device(kernel: str, **tensors) -> None:
+    """Raises a ValueError that names the devices when `tensors` lie on
+    more than one. Each wrapper launches its kernel inside
+    `torch.cuda.device(...)` of that one device, so that the kernel runs
+    on its tensors' card whatever the current device is."""
+    devices = {name: t.device for name, t in tensors.items()}
+    if len(set(devices.values())) > 1:
+        raise ValueError(f"{kernel}: tensors on more than one device: "
+                         + ", ".join(f"{name} on {dev}"
+                                     for name, dev in devices.items()))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -445,6 +445,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+constexpr int kMaxDevices = 64;           // host settings cached per device
 constexpr int kErrEntryPoint = 10000;     // no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 20000;         // + the CUresult of the encode
 
@@ -501,13 +502,17 @@ extern "C" int flash_attention_sm90(
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
     int64_t vsh, int64_t osb, int64_t oss, int64_t osh, int causal,
     int window, int q_offset, float scale, void* stream) {
-  static bool configured = false;
-  if (!configured) {
+  // the attribute applies to the current device only: set once per device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  const bool cached = cudaGetDevice(&dev) == cudaSuccess && dev >= 0 &&
+                      dev < kMaxDevices;
+  if (!cached || !configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attention_sm90_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    if (cached) configured[dev] = true;
   }
   const EncodeTiled fn = encode_tiled();
   if (!fn) return kErrEntryPoint;

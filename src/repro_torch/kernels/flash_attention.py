@@ -11,11 +11,12 @@ takes the same [B, S, H, hd] layout):
 
 `flash_attention` routes by device and dtype: bf16 CUDA tensors launch
 the tensor-core kernel `csrc/flash_attention_sm90.cu` (wgmma and TMA;
-`launches_tc`), f32 CUDA tensors the CUDA-core kernel
-`csrc/flash_attention.cu` (`launches_f32`), and CPU tensors run the
-plain PyTorch version `flash_attention_plain`; any other device raises,
-and a failed build or launch raises. `launches` counts every kernel
-launch.
+`launches_tc`), f32 CUDA tensors the split-TF32 tensor-core kernel
+`csrc/flash_attention_tf32.cu` (wgmma, bulk copies; `launches_f32`), each
+on the tensors' device, and CPU tensors run the plain PyTorch version
+`flash_attention_plain`; any other device raises, and a failed build or
+launch raises. `launches` counts every kernel launch (the f32 route's
+key/value split pre-pass and attention kernel count as one).
 
 The plain version repeats the TPU kernel's arithmetic, not the model's
 `chunked_attention`: the TPU kernel casts q to f32 and scales it there,
@@ -34,7 +35,7 @@ from repro_torch.kernels import build
 
 launches = 0
 launches_tc = 0             # bf16: csrc/flash_attention_sm90.cu
-launches_f32 = 0            # f32: csrc/flash_attention.cu
+launches_f32 = 0            # f32: csrc/flash_attention_tf32.cu
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128          # the kernel's shared-memory tiles hold hd <= 128
 PLAIN_BLOCK_Q = 512         # query rows per step of the plain version
@@ -84,16 +85,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _bind(lib, bf16: bool):
+    """(entry point, the f32 kernel's scratch size function or None) of a
+    loaded library of the bf16 or the f32 kernel, argument types set."""
+    fn = lib.flash_attention_sm90 if bf16 else lib.flash_attention_tf32
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = ([p] * (4 if bf16 else 5) + [i] * 6 + [i64] * 12
+                   + [i] * 3 + [ctypes.c_float, p])
+    fn.restype = i
+    if bf16:
+        return fn, None
+    scratch = lib.flash_attention_tf32_scratch_bytes
+    scratch.argtypes = [i] * 4
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
+_fns: dict[bool, tuple] = {}
+
+
 def _kernel(bf16: bool):
-    """The C entry point of the bf16 (tensor-core) or the f32 kernel."""
-    name = "flash_attention_sm90" if bf16 else "flash_attention"
-    fn = getattr(build.load(name), name if bf16 else "flash_attention_f32")
-    if fn.argtypes is None:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p] * 4 + [i] * 6 + [i64] * 12 + [i] * 3
-                       + [ctypes.c_float, p])
-        fn.restype = i
-    return fn
+    """`_bind` of the bf16 or the f32 kernel's library, set up once."""
+    if bf16 not in _fns:
+        _fns[bf16] = _bind(build.load("flash_attention_sm90" if bf16
+                                      else "flash_attention_tf32"), bf16)
+    return _fns[bf16]
 
 
 def _check_tma(q, k, v) -> None:
@@ -122,7 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     their strides; the last axis must be contiguous). f32 or bf16, all
     three alike; hd <= 128 (in bf16 a multiple of 8, and pointers and
     strides as TMA takes them: `_check_tma`); `q_offset` a Python int
-    >= 0. Returns [B,Sq,H,hd] in q's dtype."""
+    >= 0. The kernel launches on the tensors' device. Returns [B,Sq,H,hd]
+    in q's dtype."""
     B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -130,6 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    build.check_one_device("flash_attention", q=q, k=k, v=v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: float32 or bfloat16 expected, "
                          f"got {q.dtype}")
@@ -162,13 +180,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B * Sq * H == 0:
         return out
-    fn = _kernel(bf16)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, Sq, Sk, H, KH, hd, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], *out.stride()[:3], int(causal),
-             0 if window is None else int(window), q_offset,
-             1.0 / math.sqrt(hd), stream)
+    fn, scratch_bytes = _kernel(bf16)
+    # f32: the kernel's K and V^T hi/lo tiles, written by its pre-pass
+    scratch = None if bf16 else torch.empty(
+        scratch_bytes(B, Sk, KH, hd), dtype=torch.uint8, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *(() if bf16 else (scratch.data_ptr(),)),
+                 B, Sq, Sk, H, KH, hd, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                 int(causal), 0 if window is None else int(window),
+                 q_offset, 1.0 / math.sqrt(hd),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:         # a CUDA error; bf16 also 10000 (no tensor-map encoder)
         raise RuntimeError(f"flash_attention launch failed: error {err}"
                            + (" (20000 + the CUresult of "

@@ -66,7 +66,8 @@ def _check(name, t, shape, device) -> None:
 def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
                     act: str = "relu", mean: bool = True) -> torch.Tensor:
     """Fused transform+aggregate of one dense GraphSAGE hop; mean divides
-    each row by max(rowsum(adj[b]), 1). All inputs fp32 on one device.
+    each row by max(rowsum(adj[b]), 1). All inputs fp32 on one device
+    (the kernel launches on it).
     On the card, graphs too large for the kernel to keep their messages
     on chip (N > 192 at D = 192) take a message scratch in device
     memory, allocated for the call."""
@@ -77,6 +78,7 @@ def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"graph_aggregate runs on cuda or cpu, not "
                          f"{x.device}")
+    build.check_one_device("graph_aggregate", adj=adj, x=x, w=w)
     B, N, D = x.shape
     F = w.shape[1]
     dev = x.device
@@ -91,9 +93,11 @@ def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     scratch = (torch.empty(nbytes // 4, device=dev, dtype=torch.float32)
                if nbytes else None)
     out = torch.empty((B, N, F), device=dev, dtype=torch.float32)
-    err = fn(adj.data_ptr(), x.data_ptr(), w.data_ptr(), out.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), B, N, D, F,
-             act == "relu", mean, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(adj.data_ptr(), x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, N, D,
+                 F, act == "relu", mean,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"graph_aggregate launch failed: CUDA error "
                            f"{err}")

@@ -1,14 +1,19 @@
-"""Where one block of the GraphSAGE kernels spends its cycles, on the card.
+"""Where one block of the tensor-core kernels spends its cycles, on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.phase_clocks
 
-Builds `csrc/graph_aggregate.cu` and `csrc/segment_aggregate.cu` once more
-with `-DREPRO_PHASE_CLOCKS` (into `kernels/build/phase_clocks/`): block
-(0, 0) then records `clock64()` after a block barrier at each
-`REPRO_PHASE(i)` mark. Each case calls those builds' entry points
-directly (the wrappers keep the normal builds), a few times, and the phases of its last call are printed as cycles
-since the block's start (for a block that walks several tiles or graphs,
-those of its last one). The barriers the marks add cost a few hundred
+Builds `csrc/graph_aggregate.cu`, `csrc/segment_aggregate.cu` and
+`csrc/flash_attention_tf32.cu` once more with `-DREPRO_PHASE_CLOCKS` (into
+`kernels/build/phase_clocks/`): block (0, 0) of the GraphSAGE kernels then
+records `clock64()` after a block barrier at each `REPRO_PHASE(i)` mark;
+the f32 flash kernel's block (0, 0, 0), the heaviest query tile, records
+from its first consumer thread, without barriers, its start, Q split and
+first key tile, and the cycles it spent per phase summed over its key
+tiles (Q·K^T, softmax and P split, waiting for V, P·V and the fold,
+waiting for the next K). Each case calls those builds' entry points
+directly (the wrappers keep the normal builds), a few times, and the
+phases of its last call are printed as cycles since the block's start
+(for a block that walks several tiles or graphs, those of its last one). The barriers the marks add cost a few hundred
 cycles in all; the normal build has no marks. It first prints, for the
 normal builds, how many tensor-core products (HGMMA) the SASS holds and
 how many waits for all of them (WARPGROUP.DEPBAR): one wait per product
@@ -46,14 +51,20 @@ def _instrumented(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
+SASS_LIBS = ("graph_aggregate", "segment_aggregate", "flash_attention_tf32",
+             "flash_attention_sm90")
+FLASH_PHASES = ("Q.K^T", "softmax + P split", "V wait", "P.V + fold",
+                "K wait")
+
+
 def _sass_waits() -> None:
-    reports = build.build(("graph_aggregate", "segment_aggregate"))
+    reports = build.build(SASS_LIBS)
     for name, report in sorted(reports.items()):
         for line in report.splitlines():
             if "wgmma" in line or "GMMA" in line:       # ptxas advisories
                 print(f"[ptxas] {name}: {line.strip()[:300]}", flush=True)
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    for name in ("graph_aggregate", "segment_aggregate"):
+    for name in SASS_LIBS:
         sass = subprocess.run([tool, "-sass", build.library_path(name)],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -126,6 +137,47 @@ def main() -> None:
             return graph_f32(adj.data_ptr(), x.data_ptr(), w.data_ptr(),
                              out.data_ptr(), None, B, N, D, F, 1, 1, stream)
         _phases(graph, run, f"graph_aggregate B={B} N={N}", GRAPH_PHASES)
+    _flash_phases()
+
+
+def _flash_phases() -> None:
+    """One block of the f32 flash kernel at h2o-danube-3-4b's layer shape
+    (B=2, S=8192, H=32, KH=8, hd=120, causal, window 4096)."""
+    from repro_torch.kernels import flash_attention as fa
+    lib = _instrumented("flash_attention_tf32")
+    fn, scratch_bytes = fa._bind(lib, bf16=False)
+    B, S, H, KH, hd, window = 2, 8192, 32, 8, 120, 4096
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(B, S, H, hd, generator=gen).cuda()
+    k, v = (torch.randn(B, S, KH, hd, generator=gen).cuda()
+            for _ in range(2))
+    out = torch.empty_like(q)
+    scratch = torch.empty(scratch_bytes(B, S, KH, hd), dtype=torch.uint8,
+                          device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):
+        if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              scratch.data_ptr(), B, S, S, H, KH, hd, *q.stride()[:3],
+              *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], 1,
+              window, 0, hd ** -0.5, stream):
+            raise RuntimeError("flash_attention_tf32: launch failed")
+    torch.cuda.synchronize()
+    clocks = (ctypes.c_ulonglong * 16)()
+    if lib.repro_read_phase_clocks(clocks):
+        raise RuntimeError("reading the phase clocks failed")
+    t0, tiles = clocks[0], max(1, clocks[9])
+    ref = fa.flash_attention_plain(q[:, -64:], k, v, causal=True,
+                                   window=window, q_offset=S - 64)
+    worst = float(((out[:, -64:] - ref).abs()
+                   / (2e-5 * ref.abs() + 5e-6)).max())
+    print(f"[phases] flash_attention_tf32 layer shape, block (0, 0, 0) "
+          f"(query rows {S - 64}..{S - 1}, {tiles} key tiles): Q split "
+          f"{clocks[1] - t0}, first K landed {clocks[2] - t0}, end "
+          f"{clocks[8] - t0} cycles since its start; per key tile: "
+          + ", ".join(f"{name} {clocks[3 + j] / tiles:.0f}"
+                      for j, name in enumerate(FLASH_PHASES))
+          + f"; its rows vs plain: worst {worst:.3f} of the limit",
+          flush=True)
 
 
 if __name__ == "__main__":

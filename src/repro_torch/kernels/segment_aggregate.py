@@ -146,6 +146,9 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"segment_aggregate runs on cuda or cpu, not "
                          f"{x.device}")
+    build.check_one_device("segment_aggregate", x=x, w=w, w_scale=w_scale,
+                           node_mask=node_mask, rowptr=edges.rowptr,
+                           src=edges.src, weight=edges.weight)
     return _launch(x, w, w_scale, edges, node_mask, act, mean)
 
 
@@ -176,12 +179,14 @@ def _launch(x, w, w_scale, edges, node_mask, act, mean,
     out = torch.empty((M, F), device=dev, dtype=f32)
     msg = (torch.empty((M, F), device=dev, dtype=f32)
            if two_launch or M > fused_max_rows else None)
-    err = (fn_i8 if int8 else fn_f32)(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), node_mask.data_ptr(),
-        edges.rowptr.data_ptr(), edges.src.data_ptr(),
-        edges.weight.data_ptr(), None if msg is None else msg.data_ptr(),
-        out.data_ptr(), M, D, F, act == "relu", mean,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = (fn_i8 if int8 else fn_f32)(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            node_mask.data_ptr(), edges.rowptr.data_ptr(),
+            edges.src.data_ptr(), edges.weight.data_ptr(),
+            None if msg is None else msg.data_ptr(), out.data_ptr(), M, D,
+            F, act == "relu", mean,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"segment_aggregate launch failed: CUDA error "
                            f"{err}")

@@ -58,13 +58,15 @@ def _lib():
 
 
 def ssd_scan(S: torch.Tensor, d: torch.Tensor):
-    """S: [B,nc,H,N,P]; d: [B,nc,H], contiguous f32 on one device.
+    """S: [B,nc,H,N,P]; d: [B,nc,H], contiguous f32 on one device (the
+    kernel launches on it).
     Returns (h_before [B,nc,H,N,P], h_final [B,H,N,P]), f32."""
     B, nc, H, N, P = _check_shapes(S, d)
     if S.device.type == "cpu":
         return ssd_scan_plain(S, d)
     if S.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {S.device}")
+    build.check_one_device("ssd_scan", S=S, d=d)
     for name, t in (("S", S), ("d", d)):
         if (t.dtype != torch.float32 or t.device != S.device
                 or not t.is_contiguous()):
@@ -77,10 +79,11 @@ def ssd_scan(S: torch.Tensor, d: torch.Tensor):
                           device=S.device)
     if B * H * N * P == 0:
         return h_before, h_final
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    err = _lib().ssd_scan_f32(S.data_ptr(), d.data_ptr(),
-                              h_before.data_ptr(), h_final.data_ptr(), B,
-                              nc, H, N * P, stream)
+    with torch.cuda.device(S.device):
+        err = _lib().ssd_scan_f32(
+            S.data_ptr(), d.data_ptr(), h_before.data_ptr(),
+            h_final.data_ptr(), B, nc, H, N * P,
+            torch.cuda.current_stream(S.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     global launches

@@ -353,8 +353,8 @@ def _flash_cuda_inputs(case, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CUDA_CASES, ids=str)
 def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
-    """f32 (csrc/flash_attention.cu): the kernel's fp32 CUDA-core sums
-    against cuBLAS's f32 (TF32 off), 2e-5; bf16 (the tensor-core kernel,
+    """f32 (csrc/flash_attention_tf32.cu): split-TF32 products with f32
+    sums against cuBLAS's f32 (TF32 off), 2e-5; bf16 (the tensor-core kernel,
     csrc/flash_attention_sm90.cu): f32 sums with P split into bf16
     halves, rounded to bf16, so at most one ulp (<= 2^-7·|ref|) apart,
     held to 2^-6·|ref| + 1e-5 per element."""
@@ -375,6 +375,111 @@ def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
     rtol, atol = (2.0 ** -6, 1e-5) if dtype == "bfloat16" else (2e-5, 2e-5)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
+
+
+# the f32 kernel held element by element as chip_smoke.py holds it:
+# |out - ref| <= 2e-5·|ref| + 5e-6; (B, Sq, Sk, H, KH, hd, causal, window,
+# q_offset, q scale): hd 64 / 120 / 128, q_offset > 0 with Sq < Sk, and
+# q x 3 (larger scores, where exp turns a score's error into most of it)
+FLASH_F32_CASES = [
+    (1, 512, 512, 4, 1, hd, True, window, 0, 1.0)
+    for hd in (64, 120, 128) for window in (None, 100)] + [
+    (2, 96, 320, 8, 2, hd, True, 150, 224, 1.0) for hd in (64, 120, 128)] + [
+    (1, 512, 512, 4, 1, 120, True, 256, 0, 3.0),
+    (1, 1024, 1024, 4, 2, 128, True, None, 0, 3.0),
+    (1, 96, 320, 4, 1, 64, True, 100, 224, 3.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_F32_CASES, ids=str)
+def test_flash_attention_f32_split_tf32_within_flash_tol(case):
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, window, q_offset, qmul = case[6:]
+    q, k, v = _flash_cuda_inputs(case, torch.float32, seed=case[5] + 7)
+    q = q * qmul
+    before = fa.launches_f32
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    assert fa.launches_f32 == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    worst = float(((out - ref).abs() / (2e-5 * ref.abs() + 5e-6)).max())
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_counts_its_launches():
+    """One f32 call is one launch of the f32 route (its key/value split
+    pre-pass and the attention kernel count as one), none of the bf16."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_cuda_inputs((1, 64, 64, 4, 2, 64), torch.float32, 0)
+    before = fa.launches, fa.launches_tc, fa.launches_f32
+    for _ in range(3):
+        fa.flash_attention(q, k, v, causal=True)
+    assert (fa.launches, fa.launches_tc, fa.launches_f32) == (
+        before[0] + 3, before[1], before[2] + 3)
+
+
+def _every_kernel(dev):
+    """One call of every kernel wrapper on `dev`, beside its plain
+    version: [(label, out, ref, exact)]."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    res = []
+    adj, x, w = (torch.from_numpy(a).to(dev)
+                 for a in _ga_inputs(2, 64, 192, 192, seed=1))
+    res.append(("graph_aggregate", ga.graph_aggregate(adj, x, w),
+                ga.graph_aggregate_plain(adj, x, w), False))
+    xs, ws, s, g, sc, em, nm = (torch.from_numpy(a).to(dev)
+                                for a in _sa_inputs(128, 64, 96, 300, 2))
+    edges = sa.edge_csr(g, sc, em, 128)
+    res.append(("segment_aggregate", sa.segment_aggregate(
+        xs, ws, s, edges, nm), sa.segment_aggregate_plain(
+        xs, ws, s, g, sc, em, nm), True))
+    wq, sq = (t.to(dev) for t in _int8_weights(64, 96, 3, pow2_scale=True))
+    res.append(("segment_aggregate int8", sa.segment_aggregate(
+        xs, wq, sq, edges, nm), sa.segment_aggregate_plain(
+        xs, wq, sq, g, sc, em, nm), True))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dev) for t in _flash_cuda_inputs(
+            (1, 200, 200, 8, 2, 120), dtype, seed=4))
+        res.append((f"flash_attention {dtype}", fa.flash_attention(
+            q, k, v, causal=True, window=64), fa.flash_attention_plain(
+            q, k, v, causal=True, window=64), False))
+    gen = torch.Generator().manual_seed(5)
+    S = torch.randn((2, 5, 3, 16, 8), generator=gen).to(dev)
+    d = torch.rand((2, 5, 3), generator=gen).to(dev)
+    res.append(("ssd_scan", ss.ssd_scan(S, d)[1], ss.ssd_scan_plain(S, d)[1],
+                True))
+    return res
+
+
+@pytest.mark.cuda
+def test_every_kernel_launches_on_its_tensors_device():
+    """Tensors on cuda:1 while the current device is cuda:0: each wrapper
+    launches its kernel on cuda:1 (a launch on the current device would
+    read another card's memory) and leaves the current device as it was.
+    Skips below two cards."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.cuda.device(0):
+        results = _every_kernel(torch.device("cuda", 1))
+        torch.cuda.synchronize(1)
+        assert torch.cuda.current_device() == 0
+    for label, out, ref, exact in results:
+        assert out.device == torch.device("cuda", 1), label
+        if exact:
+            assert torch.equal(out, ref), label
+        elif out.dtype == torch.bfloat16:
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=2.0 ** -6, atol=1e-5)
+        else:
+            torch.testing.assert_close(out, ref, rtol=2e-5, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -201,6 +201,16 @@ def test_segment_aggregate_isolated_nodes_zero():
         assert float(out[8:].abs().max()) == 0.0
 
 
+def test_check_one_device_names_the_devices():
+    """The wrappers launch on their tensors' one device; tensors spread
+    over several raise a ValueError that names each tensor's device."""
+    from repro_torch.kernels import build
+    a, b = torch.zeros(2), torch.zeros(2, device="meta")
+    build.check_one_device("k", x=a, y=a.clone())
+    with pytest.raises(ValueError, match="x on cpu, y on meta"):
+        build.check_one_device("k", x=a, y=b)
+
+
 def test_segment_aggregate_rejects_other_devices():
     x, w, s, g, sc, em, nm = _sa_inputs(8, 4, 4, 6, seed=2)
     edges = sa.edge_csr(_t(g), _t(sc), _t(em), 8)

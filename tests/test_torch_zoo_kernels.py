@@ -5,9 +5,9 @@ On CPU tensors the wrappers `flash_attention` and `ssd_scan` run these
 plain versions (and launch nothing); the CUDA kernels are held against
 them on the card (tests/test_torch_cuda.py, chip_smoke.py). Tolerances
 as the reference's own kernel tests: flash 2e-5 in f32 and 2e-2 in
-bf16 (one bf16 rounding of the output), ssd_scan 1e-5. The bf16 card
-kernel's own rounding (P split into bf16 halves) is emulated here and
-held to the card's element-wise limit.
+bf16 (one bf16 rounding of the output), ssd_scan 1e-5. The card kernels'
+own rounding (bf16: P split into bf16 halves; f32: split-TF32 products)
+is emulated here and held to the card's element-wise limits.
 """
 import math
 
@@ -191,6 +191,144 @@ def test_flash_attention_bf16_p_rounded_once_fails_flash_tol():
     worst, share = _bf16_worst(case, split_p=False)
     assert worst > 10.0 and share > 0.01, (worst, share)
     assert _bf16_worst(case, split_p=True)[0] <= 1.0
+
+
+# ----------------------------------------------- the f32 kernel's rounding
+# The card's f32 kernel (csrc/flash_attention_tf32.cu) takes both
+# products on the tensor cores in split TF32: a = hi + lo, hi = rna(a),
+# lo = rna(a - hi), a·b = hi·lo + lo·hi + hi·hi, over 64-key tiles. The
+# emulation below repeats that arithmetic: tf32 rounding as the kernel's
+# integer operations, each k8 step of 8 products summed exactly and
+# truncated toward zero into the f32 accumulator (a model of the tensor
+# cores' rounding, the less favourable of round-to-nearest and
+# truncation), the two small correction terms first and the hi·hi steps on
+# top, P·V of each tile into a fresh accumulator folded in as O·alpha +
+# Ot. It is held to the card's f32 limit (chip_smoke.py FLASH_TOL).
+FLASH_F32_RTOL, FLASH_F32_ATOL = 2e-5, 5e-6
+
+
+def _tf32_rna(x):
+    """float32 -> tf32 as the kernel's tf32_rna: 10 explicit mantissa
+    bits, ties away from zero, as two integer operations."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz_float32(x):
+    """float64 -> float32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc_product(a, b, split):
+    """a [..., M, D] @ b[..., N, D]^T as the tensor cores take it: k8
+    steps into an f32 accumulator, truncated after each; `split`: the
+    three-term split TF32 (corrections first), else one tf32 product."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    terms = []
+    if split:
+        a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+        terms = [(a_hi, b_lo), (a_lo, b_hi)]
+    terms.append((a_hi, b_hi))
+    acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32)
+    for x, y in terms:
+        for k0 in range(0, a.shape[-1], 8):
+            step = (x[..., k0:k0 + 8].double()
+                    @ y[..., k0:k0 + 8].double().transpose(-1, -2))
+            acc = _rz_float32(acc.double() + step)
+    return acc
+
+
+def _emulate_split_tf32_flash(q, k, v, *, causal, window, q_offset,
+                              tile=64, split=(True, True)):
+    """q [B,Sq,H,hd], k, v [B,Sk,KH,hd] f32 -> f32 in the arithmetic of
+    the f32 kernel; `split` (Q·K^T, P·V): False takes that product as one
+    tf32 product instead."""
+    B, Sq, H, hd = q.shape
+    Sk, rep = k.shape[1], H // k.shape[2]
+    qs = (q * (1.0 / math.sqrt(hd))).transpose(1, 2)        # [B,H,Sq,hd]
+    kf = k.repeat_interleave(rep, 2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, 2).permute(0, 2, 3, 1)    # [B,H,hd,Sk]
+    q_pos = q_offset + torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), fa.NEG_INF)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, hd))
+    for k0 in range(0, Sk, tile):
+        s = _tc_product(qs, kf[:, :, k0:k0 + tile], split[0])
+        k_pos = k0 + torch.arange(s.shape[-1])[None, :]
+        valid = k_pos < Sk
+        if causal:
+            valid = valid & (k_pos <= q_pos)
+        if window is not None:
+            valid = valid & (q_pos - k_pos < window)
+        s = s.masked_fill(~valid, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = torch.addcmul(_tc_product(p, vt[..., k0:k0 + tile], split[1]),
+                          o, alpha)
+        m = m_new
+    return (o / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+def _f32_worst(case, split=(True, True)):
+    """The emulation's largest |Δ| / (rtol·|ref| + atol) against the
+    plain version."""
+    B, Sq, Sk, H, KH, hd, causal, window, q_offset, qmul = case
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(
+        B, Sq, Sk, H, KH, hd, "float32", seed=Sk + hd))
+    q = q * qmul
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _emulate_split_tf32_flash(q, k, v, split=split, **kw)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    return float(((got - ref).abs() / (FLASH_F32_RTOL * ref.abs()
+                                       + FLASH_F32_ATOL)).max())
+
+
+# (B, Sq, Sk, H, KH, hd, causal, window, q_offset, q scale): hd 120 (the
+# model's), 128 and 64, a window or none; q_offset > 0 with Sq < Sk; and
+# q x 3, where the scores are larger and exp turns their error into most
+# of the output's
+FLASH_F32_EMU_CASES = [
+    (1, 256, 256, 4, 1, hd, True, window, 0, 1.0)
+    for hd in (120, 128, 64) for window in (None, 100)] + [
+    (1, 96, 320, 4, 2, hd, True, 150, 224, 1.0) for hd in (120, 128, 64)] + [
+    (1, 256, 256, 4, 1, 120, True, 100, 0, 3.0),
+    (1, 256, 256, 4, 2, 128, True, None, 0, 3.0),
+    (1, 96, 320, 4, 2, 64, True, 150, 224, 3.0)]
+
+
+@pytest.mark.parametrize("case", FLASH_F32_EMU_CASES, ids=str)
+def test_flash_attention_f32_kernel_split_tf32_within_flash_tol(case):
+    """Split TF32 on both products stays within 2e-5·|ref| + 5e-6 of the
+    plain version, q x 3 included."""
+    assert _f32_worst(case) <= 1.0
+
+
+@pytest.mark.parametrize("split", [(False, True), (True, False)],
+                         ids=["qk-one-product", "pv-one-product"])
+def test_flash_attention_f32_one_tf32_product_fails_flash_tol(split):
+    """The guard on the split: one tf32 product on either side, the other
+    split, fails the same limit by more than 10x."""
+    case = (1, 256, 256, 4, 1, 120, True, 100, 0, 1.0)
+    assert _f32_worst(case, split) > 10.0
+    assert _f32_worst(case) <= 1.0
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    """The integer rounding keeps 10 explicit mantissa bits, ties away
+    from zero, and leaves hi + lo within 2^-22 of the value."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0])
+    assert _tf32_rna(x).tolist() == [1.0 + 2.0 ** -10,
+                                     -(1.0 + 2.0 ** -10), 1.0, 3.0]
+    y = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, 4096).astype(np.float32))
+    hi = _tf32_rna(y)
+    lo = _tf32_rna(y - hi)
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -22
 
 
 SSD_CASES = [(1, 2, 1, 8, 8), (2, 4, 3, 16, 8), (1, 8, 5, 32, 16),
