@@ -39,7 +39,29 @@ Phases, each reported on its own lines; any failure exits non-zero:
              backend (column-wise reduction, budget 512), in f32 and int8,
              each against the kernels off; graphs within the budget score
              as through the sparse service.
-7. zoo-kernels — the LM zoo's kernels against their plain versions:
+7. train   — the cost model trained on the card (`CostModelTrainer`, the
+             default `CostModelConfig()` width, dropout 0.1, kernels
+             off: they have no backward) on the tile dataset of
+             `generate_corpus(48)` (`train cost-model`'s corpus, split by
+             program): 300 steps dense and 300 sparse (4 kernels x 8
+             tiles a step), and 20 steps of the fusion task on two
+             10k-node `whole_model_records`, segmented at a budget of
+             512 (two a step). Each run prints ms per step (CUDA events
+             over 50 steps; 10 for the segmented run), steps/s, the loss
+             of step 1 and of the last step, device busy and kernel
+             launches per step (a profiled window of 20 steps; 9), and
+             peak memory; fails on a non-finite loss, and (dense,
+             sparse) unless the final model's held-out loss (a fixed
+             batch of the test programs, dropout off) is below the
+             step-0 model's. Resume: a trainer checkpointed at step 150
+             and a fresh one resumed from it to 300 match the
+             uninterrupted dense run within 1e-6 of each leaf's largest
+             value. The final checkpoint, read back with
+             `load_jax_checkpoint`, scores the held-out tile records
+             through `CostModelService` with the kernels on (dense →
+             graph_aggregate, sparse → segment_aggregate) against the
+             kernels off, as in 4.
+8. zoo-kernels — the LM zoo's kernels against their plain versions:
              `flash_attention` at h2o-danube-3-4b's layer shape (B=2,
              S=8192, H=32, KH=8, hd=120, causal, window 4096) in bf16
              (the tensor-core kernel) and in f32 (the split-TF32 kernel),
@@ -51,7 +73,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
              keys left out) must fail that check; `ssd_scan` at
              Mamba2-2.7b's full shapes (B=2, nc=32, H=80, N=128, P=64),
              bit-exact.
-8. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
+9. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
              weights from seed 0) scores 2 x 8192 tokens through
              `loss_fn` with the flash kernel (24 launches, all of the
              tensor-core kernel) and with
@@ -61,14 +83,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
              and `chunked_attention`, and planted faults (output zeroed,
              window 64 keys short) must fail the latter; what the
              end-to-end limits make of those faults is printed.
-9. lm-serve — the port's serve loop (`repro_torch.launch.serve`) on the
+10. lm-serve — the port's serve loop (`repro_torch.launch.serve`) on the
              same model: batch 4, prompt 512, 64 greedy decode steps;
              prefill on 511 tokens + decode of token 512 agrees with the
              forward's last-position logits.
-10. lm-forward-f32 — the same model in f32 (its seed-0 weights cast, the
+11. lm-forward-f32 — the same model in f32 (its seed-0 weights cast, the
              bf16 ones released): `loss_fn` over the same 2 x 8192 tokens
              with the flash kernel (24 launches of the split-TF32 kernel)
-             and with `chunked_attention`, held as in 8 to f32 limits.
+             and with `chunked_attention`, held as in 9 to f32 limits.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -82,6 +104,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -587,11 +610,12 @@ def _launches() -> dict:
             "flash_attention_f32": fa.launches_f32, "ssd_scan": ss.launches}
 
 
-def serve(label, make_service, requests, kernels) -> dict:
+def serve(label, make_service, requests, kernels, tag="serve") -> dict:
     """One path: warm-up pass, the timed pass with every launch count set
     to 0 just before and read just after, a profiled pass, and the same
     stream with the kernels off. `make_service(use_kernels)` builds a
-    fresh service; each kernel in `kernels` must have launched."""
+    fresh service; each kernel in `kernels` must have launched. Lines
+    start with `[tag]`."""
     import numpy as np
     import torch
     from repro_torch.serving.replay import run_replay
@@ -614,17 +638,17 @@ def serve(label, make_service, requests, kernels) -> dict:
         lambda: run_replay(prof_svc.predict_many, requests))
     busy = sum(us for _, us in prof.values()) / 1e6
     top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
-    log(f"[serve] {label} profiled pass: wall {wall:.3f} s, device busy "
+    log(f"[{tag}] {label} profiled pass: wall {wall:.3f} s, device busy "
         f"{busy:.4f} s ({busy / wall:.1%}), "
         f"{sum(c for c, _ in prof.values())} kernel launches")
     for name, (count, us) in top:
-        log(f"[serve]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
+        log(f"[{tag}]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
     ref, _ = run_replay(make_service(False).predict_many, requests)
     got, want = np.concatenate(preds), np.concatenate(ref)
     err = float(np.max(np.abs(got - want)))
     tol = 1e-4 * max(1.0, float(np.max(np.abs(want))))
     cfg = svc.model_cfg
-    log(f"[serve] {label}: {n_queries / dt:.1f} queries/s "
+    log(f"[{tag}] {label}: {n_queries / dt:.1f} queries/s "
         f"({n_queries} queries, {dt:.3f} s) "
         f"hit_rate={st.hit_rate:.4f} flushes={st.flushes} "
         f"p50={st.latency_p50_ms:.3f} ms p99={st.latency_p99_ms:.3f} ms "
@@ -690,16 +714,238 @@ def int8_services(replay, qm, layout: str):
     return make
 
 
-def _agree(label, got, want) -> None:
+def _agree(label, got, want, tag="serve") -> None:
     import numpy as np
     err = float(np.max(np.abs(got - want)))
     tol = 1e-4 * max(1.0, float(np.max(np.abs(want))))
-    log(f"[serve] {label}: max_abs_err={err:.3e} (tol {tol:.3e})")
+    log(f"[{tag}] {label}: max_abs_err={err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         raise AssertionError(f"{label}: {err} > {tol}")
 
 
 # --------------------------------------------------------------------- 7
+TRAIN_PROGRAMS = 48       # `train cost-model --programs` default
+TRAIN_STEPS, RESUME_AT = 300, 150
+WHOLE_TRAIN_PROGRAMS, WHOLE_TRAIN_STEPS = 2, 20
+TIMED_STEPS, PROFILED_STEPS = 50, 20
+WHOLE_TIMED_STEPS = 10    # of the segmented run's 20: 1 + 10 timed + 9
+# a resumed run redoes the uninterrupted one's arithmetic: each leaf
+# within 1e-6 of its largest value (bit-exact on the CPU)
+RESUME_RTOL = 1e-6
+
+
+def _train_data() -> dict:
+    """What `train cost-model` builds: the tile and fusion datasets of
+    `generate_corpus(TRAIN_PROGRAMS)` labelled by the port's
+    `TPUSimulator`, split by program, the tile normalizer fitted on the
+    train split; and two ~10k-node whole-model fusion records."""
+    from repro_torch.core.features import fit_normalizer
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.corpus import filter_by_programs, split_programs
+    from repro_torch.data.fusion_dataset import build_fusion_dataset
+    from repro_torch.data.synthetic import generate_corpus, \
+        whole_model_records
+    from repro_torch.data.tile_dataset import build_tile_dataset, \
+        fit_tile_normalizer
+    t0 = time.perf_counter()
+    sim = TPUSimulator()
+    programs = generate_corpus(TRAIN_PROGRAMS, seed=0)
+    split = split_programs([p.program for p in programs], seed=0)
+    tiles = build_tile_dataset(programs, sim, max_configs_per_kernel=24)
+    fusion = build_fusion_dataset(programs, sim, configs_per_program=12)
+    whole = whole_model_records(WHOLE_TRAIN_PROGRAMS, WHOLE_NODES, seed=0,
+                                simulator=sim)
+    d = {"tile_train": filter_by_programs(tiles.records, split["train"]),
+         "tile_test": filter_by_programs(tiles.records, split["test"]),
+         "fusion_test": filter_by_programs(fusion.records, split["test"]),
+         "whole": whole}
+    d["tile_norm"] = fit_tile_normalizer(d["tile_train"])
+    d["whole_norm"] = fit_normalizer([r.kernel for r in whole])
+    log(f"[train] data: {TRAIN_PROGRAMS} programs (the CLI's default, not "
+        f"cut; {len(split['train'])} "
+        f"train, {len(split['test'])} test), tile records "
+        f"{len(d['tile_train'])} train / {len(d['tile_test'])} test "
+        f"({tiles.num_samples} samples), fusion records "
+        f"{len(fusion.records)} ({len(d['fusion_test'])} test), whole "
+        f"programs {[r.kernel.num_nodes for r in whole]} nodes; built in "
+        f"{time.perf_counter() - t0:.2f} s of host time")
+    return d
+
+
+def _tile_sampler(records, norm, layout):
+    from repro_torch.data.sampler import TileBatchSampler
+    return TileBatchSampler(records, norm, kernels_per_batch=4,
+                            configs_per_kernel=8, max_nodes=64,
+                            adjacency=layout)
+
+
+def _trainer(cfg, sampler, task, **tc_kw):
+    from repro_torch.training.trainer import CostModelTrainer, \
+        TrainerConfig
+    from repro_torch.training.optim import AdamWConfig
+    tc = TrainerConfig(**{**dict(task=task, ckpt_every=0,
+                                 log_every=TRAIN_STEPS,
+                                 optim=AdamWConfig(lr=2e-3)), **tc_kw})
+    return CostModelTrainer(cfg, tc, sampler, device=DEVICE)
+
+
+def _held_loss(trainer, batch) -> float:
+    import torch
+    with torch.no_grad():
+        return float(trainer.loss(batch))
+
+
+def train_run(label, trainer, steps, held, *, timed, profiled,
+              gate_held=True) -> dict:
+    """Drive `trainer` from step 0 to `steps`: step 1 alone (its loss), a
+    window of `timed` steps between CUDA events ended by a synchronize,
+    a profiled window of `profiled` steps, then on to the end. Fails on a
+    non-finite loss, and with `gate_held` unless the held-out loss of the
+    final model is below the step-0 model's."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = _held_loss(trainer, held)
+    first = trainer.run(1, resume=False)["loss"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.run(trainer.step + timed, resume=False)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / timed
+    out = {}
+    prof, wall = device_profile(lambda: out.update(
+        trainer.run(trainer.step + profiled, resume=False)))
+    busy = sum(us for _, us in prof.values()) / 1e6
+    launches = sum(c for c, _ in prof.values()) / profiled
+    if trainer.step < steps:
+        out = trainer.run(steps, resume=False)
+    last = out["loss"]
+    held1 = _held_loss(trainer, held)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = trainer.model_cfg
+    log(f"[train] {label}: {ms:.3f} ms/step ({1e3 / ms:.1f} steps/s, "
+        f"CUDA events over {timed} steps), loss step 1 {first:.6f} -> step "
+        f"{trainer.step} {last:.6f}, held-out loss {held0:.6f} -> "
+        f"{held1:.6f}, device busy {busy:.4f} s of {wall:.3f} s "
+        f"({busy / wall:.1%}) and {launches:.1f} kernel launches per step "
+        f"over {profiled} profiled steps, peak memory {peak:.3f} GiB "
+        f"(hidden={cfg.hidden_dim} adjacency={cfg.adjacency} "
+        f"reduction={cfg.reduction} dropout={cfg.dropout} "
+        f"task={trainer.cfg.task})")
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
+    for name, (count, us) in top:
+        log(f"[train]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
+    if not (np.isfinite(first) and np.isfinite(last)
+            and np.isfinite(held0) and np.isfinite(held1)):
+        raise AssertionError(f"{label}: non-finite loss")
+    if gate_held and not held1 < held0:
+        raise AssertionError(f"{label}: held-out loss {held1} not below "
+                             f"the step-0 model's {held0}")
+    return {"ms": ms, "first": first, "last": last}
+
+
+def check_resume(cfg, data, reference, ckpt_dir) -> None:
+    """A trainer checkpointed at RESUME_AT and a fresh one resumed from
+    it to TRAIN_STEPS against the uninterrupted run `reference`."""
+    import torch
+    from repro_torch.training.optim import tree_leaves
+
+    def make():
+        return _trainer(cfg, _tile_sampler(data["tile_train"],
+                                           data["tile_norm"], "dense"),
+                        "tile", ckpt_dir=ckpt_dir, ckpt_every=RESUME_AT)
+    make().run(RESUME_AT, resume=False)
+    resumed = make()
+    resumed.run(TRAIN_STEPS)                 # resumes at RESUME_AT
+    worst, exact = 0.0, True
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(resumed.params),
+                        tree_leaves(reference.params)):
+            exact = exact and torch.equal(a, b)
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+    log(f"[train] resume: checkpoint at step {RESUME_AT}, a fresh trainer "
+        f"resumed to {resumed.step}: largest |Δ| / max|leaf| vs the "
+        f"uninterrupted run {worst:.3e} (limit {RESUME_RTOL:g}; "
+        f"bit-exact: {exact})")
+    if resumed.step != TRAIN_STEPS or not worst <= RESUME_RTOL:
+        raise AssertionError(f"resume: {worst} > {RESUME_RTOL}")
+
+
+def trained_services(data, ckpt_dir, cfg, layout: str):
+    """`make_service` for the checkpoint in `ckpt_dir`, read back with
+    `load_jax_checkpoint` (the reader of either package's checkpoints)."""
+    import dataclasses
+    from repro_torch.core.evaluate import make_predict_fn
+    from repro_torch.core.params import load_jax_checkpoint
+    from repro_torch.serving import CostModelService
+
+    def make(use_kernels: bool):
+        scfg = dataclasses.replace(cfg, adjacency=layout,
+                                   use_pallas_aggregate=use_kernels)
+        return CostModelService(load_jax_checkpoint(ckpt_dir, scfg,
+                                                    device=DEVICE),
+                                scfg, data["tile_norm"],
+                                predict_fn=make_predict_fn(scfg))
+    return make
+
+
+def phase_train(card: str, ckpt_root: str) -> None:
+    from repro_torch.core.model import CostModelConfig
+    from repro_torch.data.sampler import BalancedSampler
+    log(f"[train] on {card}")
+    data = _train_data()
+    _reset_launches()
+    runs = {}
+    for layout in ("dense", "sparse"):
+        cfg = CostModelConfig(adjacency=layout)
+        held = _tile_sampler(data["tile_test"], data["tile_norm"],
+                             layout).batch(0)
+        tr = _trainer(cfg, _tile_sampler(data["tile_train"],
+                                         data["tile_norm"], layout), "tile")
+        train_run(f"tile {layout}", tr, TRAIN_STEPS, held,
+                  timed=TIMED_STEPS, profiled=PROFILED_STEPS)
+        runs[layout] = tr
+    seg_cfg = CostModelConfig(adjacency="segmented", reduction="column_wise")
+    seg_held = BalancedSampler(data["fusion_test"], data["whole_norm"],
+                               batch_size=32, max_nodes=SEGMENT_BUDGET,
+                               adjacency="segmented").batch(0)
+    seg = _trainer(seg_cfg, BalancedSampler(
+        data["whole"], data["whole_norm"], batch_size=WHOLE_TRAIN_PROGRAMS,
+        max_nodes=SEGMENT_BUDGET, adjacency="segmented"), "fusion")
+    # the held-out loss (small fusion kernels of the test programs) is
+    # printed, not gated
+    train_run(f"fusion segmented ({WHOLE_TRAIN_PROGRAMS} whole programs "
+              f"of ~{WHOLE_NODES} nodes a step)", seg, WHOLE_TRAIN_STEPS,
+              seg_held, timed=WHOLE_TIMED_STEPS,
+              profiled=WHOLE_TRAIN_STEPS - 1 - WHOLE_TIMED_STEPS,
+              gate_held=False)
+    launches = {k: _launches()[k]
+                for k in ("graph_aggregate", "segment_aggregate")}
+    log(f"[train] aggregation kernel launches while training: {launches}")
+    if any(launches.values()):
+        raise AssertionError("training launched an aggregation kernel")
+
+    ckpt_dir = os.path.join(ckpt_root, "tile_dense")
+    dense_cfg = runs["dense"].model_cfg
+    check_resume(dense_cfg, data, runs["dense"], ckpt_dir)
+    requests = [[r.kernel.with_tile(t) for t in r.tiles]
+                for r in data["tile_test"]]
+    served = {}
+    for layout, kernel in (("dense", "graph_aggregate"),
+                           ("sparse", "segment_aggregate")):
+        served[layout] = serve(
+            f"trained checkpoint {layout}",
+            trained_services(data, ckpt_dir, dense_cfg, layout), requests,
+            [kernel], tag="train")
+    _agree("trained checkpoint, sparse vs dense layout",
+           served["sparse"]["preds"], served["dense"]["preds"], tag="train")
+
+
+# --------------------------------------------------------------------- 8
 ARCH = "h2o-danube-3-4b"
 LM_BATCH, LM_SEQ = 2, 8192          # 2 x 8192 tokens: past the 4096 window
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 64
@@ -981,7 +1227,7 @@ def check_ssd_scan() -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-# --------------------------------------------------------------------- 8
+# --------------------------------------------------------------------- 9
 def _lm_model():
     import torch
     from repro_torch.models import lm, registry
@@ -1194,7 +1440,7 @@ def as_f32(cfg, params):
     return dataclasses.replace(cfg, dtype="float32"), f32
 
 
-# --------------------------------------------------------------------- 9
+# -------------------------------------------------------------------- 10
 def lm_serve(cfg, params) -> None:
     import torch
     from repro_torch.launch import serve
@@ -1264,7 +1510,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import numpy as np
 
-    phase_device()
+    card = phase_device()
     phase_build()
     replay = _replay()
     log(f"[serve] replay: {replay.num_kernels} kernels, "
@@ -1326,7 +1572,11 @@ def main() -> int:
         f"{seg['preds'][n_small:].tolist()} int8 "
         f"{q_seg['preds'][n_small:].tolist()}")
 
-    # 7-9: the LM zoo
+    # 7: train on the card, then serve the trained checkpoint
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        phase_train(card, ckpt_root)
+
+    # 8-10: the LM zoo
     flash = check_flash_attention()
     rows["flash_attention"], rows["flash_attention_f32"] = (
         flash["layer"], flash["f32-layer"])
@@ -1335,7 +1585,7 @@ def main() -> int:
         cfg, params = _lm_model()
         launches = lm_forward(cfg, params)      # the main path's counts
         lm_serve(cfg, params)
-        # 10: the same model in f32, on the f32 route
+        # 11: the same model in f32, on the f32 route
         cfg32, params = as_f32(cfg, params)
         launches32 = lm_forward(cfg32, params, "lm-forward-f32")
         del params

@@ -11,9 +11,12 @@ Counterpart of `repro.core.model`. Pipeline:
 `CostModel` is an `nn.Module` whose `state_dict` keys mirror the JAX
 parameter tree's paths (`opcode_embed.table`, `gnn.layers.0.f2_in.w`,
 `gnn.stacked.f3.w`, ...); `cost_model_apply` is a plain function on the
-nested parameter dict `CostModel.tree()` returns. Inference only: the
-forward runs under `torch.inference_mode()` in `core.evaluate`, and
-dropout is the identity.
+nested parameter dict `CostModel.tree()` returns. Its f32 leaves are
+`nn.Parameter`s that do not require grad: inference (under
+`torch.inference_mode()` in `core.evaluate`) sees them so, and the
+trainer (`training.trainer`) makes them trainable with the module's own
+`requires_grad_()`. Dropout runs only with `training=True` and a
+generator; by default the forward is the inference path.
 
 Batches: `GraphBatch` (dense), `SparseGraphBatch` (packed) and
 `SegmentedGraphBatch` (whole programs cut into blocks, reassembled
@@ -43,6 +46,7 @@ from repro_torch.core.opset import NUM_OPCODES
 from repro_torch.nn.core import (
     dense_apply,
     dense_init,
+    dropout,
     embedding_apply,
     embedding_init,
     mlp_apply,
@@ -236,11 +240,15 @@ def _check_supported(cfg: CostModelConfig) -> None:
 # ----------------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------------
-def cost_model_apply(params: dict, cfg: CostModelConfig,
-                     batch) -> torch.Tensor:
+def cost_model_apply(params: dict, cfg: CostModelConfig, batch, *,
+                     generator: torch.Generator | None = None,
+                     training: bool = False) -> torch.Tensor:
     """batch: `GraphBatch`, `SparseGraphBatch` or `SegmentedGraphBatch`
     holding tensors (see `batch_to_device`). Returns predictions [B] (one
-    per graph slot)."""
+    per graph slot). With `training=True` and a `generator` (on the
+    batch's device) dropout at rate `cfg.dropout` follows the GNN and the
+    Transformer's attention, at the reference's two sites; otherwise the
+    forward is deterministic."""
     _check_supported(cfg)
     if cfg.precision == "int8":
         # sparse/segmented + kernels: the GNN tree stays quantized, its f2
@@ -252,13 +260,14 @@ def cost_model_apply(params: dict, cfg: CostModelConfig,
         params = dequantize_tree(params)
         if gnn_q is not None:
             params = dict(params, gnn=gnn_q)
+    drop = dict(generator=generator, training=training)
     if isinstance(batch, F.SegmentedGraphBatch):
-        return _cost_model_apply_segmented(params, cfg, batch)
+        return _cost_model_apply_segmented(params, cfg, batch, **drop)
     if isinstance(batch, F.SparseGraphBatch):
         eps = _embed_sparse(params, cfg, batch)
         return _readout_sparse(params, cfg, eps, batch.node_mask,
                                batch.graph_ids, batch.kernel_feats,
-                               batch.gather_idx, batch.gather_mask)
+                               batch.gather_idx, batch.gather_mask, **drop)
     opcodes = batch.opcodes
     adj = batch.adj
     mask = batch.node_mask
@@ -277,6 +286,7 @@ def cost_model_apply(params: dict, cfg: CostModelConfig,
                            aggregator=cfg.aggregator, directed=cfg.directed,
                            use_kernel=cfg.use_pallas_aggregate)
 
+    eps = dropout(eps, cfg.dropout, **drop)
     eps = mlp_apply(params["node_final"], eps, final_act=True)
     eps = eps * mask[..., None]
 
@@ -288,7 +298,8 @@ def cost_model_apply(params: dict, cfg: CostModelConfig,
         return y
 
     kappa = R.reduction_apply(params["reduction"], cfg.reduction, eps, mask,
-                              transformer_heads=cfg.transformer_heads)
+                              transformer_heads=cfg.transformer_heads,
+                              dropout_rate=cfg.dropout, **drop)
     if cfg.kernel_feat_mode == "kernel":
         kappa = torch.cat([kappa, kfeats], dim=-1)
     return dense_apply(params["head"], kappa)[..., 0]
@@ -316,7 +327,7 @@ def _embed_sparse(params: dict, cfg: CostModelConfig,
 
 
 def _cost_model_apply_segmented(params: dict, cfg: CostModelConfig,
-                                batch) -> torch.Tensor:
+                                batch, **drop) -> torch.Tensor:
     """Whole-program forward: the per-node half on the inner segment
     batch, owned-node embeddings scattered back into whole-graph node
     order, then the readout per original graph. Graphs that fit one
@@ -329,19 +340,22 @@ def _cost_model_apply_segmented(params: dict, cfg: CostModelConfig,
     buf[batch.scatter_idx.long()] = eps_in
     return _readout_sparse(params, cfg, buf[:M], batch.node_mask,
                            batch.graph_ids, batch.kernel_feats,
-                           batch.gather_idx, batch.gather_mask)
+                           batch.gather_idx, batch.gather_mask, **drop)
 
 
 def _readout_sparse(params: dict, cfg: CostModelConfig, eps: torch.Tensor,
                     mask: torch.Tensor, gids: torch.Tensor,
                     kfeats: torch.Tensor, gather_idx: torch.Tensor,
-                    gather_mask: torch.Tensor) -> torch.Tensor:
+                    gather_mask: torch.Tensor, *,
+                    generator: torch.Generator | None = None,
+                    training: bool = False) -> torch.Tensor:
     """node-final MLP + reduction + head over a flat [M, D] embedding
     buffer with per-node graph ids."""
     num_graphs = kfeats.shape[0]
     kfeats = _mask_kernel_feats(cfg, kfeats)
     gids = gids.long()
 
+    eps = dropout(eps, cfg.dropout, generator=generator, training=training)
     eps = mlp_apply(params["node_final"], eps, final_act=True)
     eps = eps * mask[:, None]
 
@@ -377,7 +391,9 @@ def _readout_sparse(params: dict, cfg: CostModelConfig, eps: torch.Tensor,
         seq = eps_pad[gather_idx.long()]                           # [G,R,D]
         kappa = R.reduction_apply(params["reduction"], cfg.reduction, seq,
                                   gather_mask,
-                                  transformer_heads=cfg.transformer_heads)
+                                  transformer_heads=cfg.transformer_heads,
+                                  dropout_rate=cfg.dropout,
+                                  generator=generator, training=training)
     if cfg.kernel_feat_mode == "kernel":
         kappa = torch.cat([kappa, kfeats], dim=-1)
     return dense_apply(params["head"], kappa)[..., 0]

@@ -53,8 +53,11 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def reduction_apply(params: dict, kind: str, eps: torch.Tensor,
                     node_mask: torch.Tensor, *,
-                    transformer_heads: int = 4) -> torch.Tensor:
-    """eps: [B, N, D] -> kernel embedding [B, out_dim]."""
+                    transformer_heads: int = 4, dropout_rate: float = 0.0,
+                    generator: torch.Generator | None = None,
+                    training: bool = False) -> torch.Tensor:
+    """eps: [B, N, D] -> kernel embedding [B, out_dim]. Dropout (the
+    Transformer's attention branch) runs only when training."""
     if kind == "column_wise":
         return torch.cat([masked_mean(eps, node_mask),
                           masked_max(eps, node_mask)], dim=-1)
@@ -62,6 +65,7 @@ def reduction_apply(params: dict, kind: str, eps: torch.Tensor,
         raise _no_lstm()
     if kind == "transformer":
         enc = encoder_apply(params["encoder"], eps, node_mask,
-                            transformer_heads)
+                            transformer_heads, dropout_rate=dropout_rate,
+                            generator=generator, training=training)
         return torch.sum(enc * node_mask[..., None], dim=1)   # Table 5: sum
     raise ValueError(f"unknown reduction {kind!r}")

@@ -406,9 +406,17 @@ def whole_model_records(num_programs: int, target_nodes: int, seed: int = 0,
     simulator — the training/serving payload for the giant-graph path
     (`benchmarks/bench_giant_graphs.py` streams these through the corpus
     store and the segmented sampler)."""
-    raise NotImplementedError(
-        "whole_model_records needs the fusion dataset "
-        "(repro.data.fusion_dataset), which the port does not have yet")
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.fusion_dataset import FusionKernelRecord
+
+    sim = simulator or TPUSimulator()
+    out = []
+    for i in range(num_programs):
+        g = whole_model_graph(target_nodes, seed + i,
+                              arch_blocks=arch_blocks)
+        out.append(FusionKernelRecord(kernel=g, runtime=sim.measure(g),
+                                      program=g.program))
+    return out
 
 
 def random_kernel(num_nodes: int, seed: int = 0, *,

@@ -1,18 +1,22 @@
-"""Tile-size candidates (paper §4, 'Tile-Size Dataset').
+"""Tile-size dataset (paper §4, 'Tile-Size Dataset').
 
-`enumerate_tiles` lists the valid tile sizes of a kernel (per-dim powers
-of two within the root output shape, filtered by VMEM fit) — what the
-tile-search replay scores. The measured tile dataset built on it
-(`repro.data.tile_dataset`) belongs to training and is not ported yet.
+For each kernel of each program (fused with the compiler-default heuristic),
+enumerate valid tile sizes (per-dim powers of two within the root output
+shape, filtered by VMEM fit) and measure each with the hardware oracle
+(min of 3 runs). Samples are grouped per kernel — the rank loss only
+compares within a group.
 """
 from __future__ import annotations
 
 import itertools
+import zlib
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from repro_torch.core.graph import KernelGraph
-from repro_torch.core.simulator import HardwareSpec, V5E, tile_fits_vmem
+from repro_torch.core.simulator import HardwareSpec, TPUSimulator, V5E, tile_fits_vmem
+from repro_torch.data.fusion import apply_fusion, default_fusion
 
 
 def _dim_options(d: int) -> list[int]:
@@ -55,3 +59,106 @@ def enumerate_tiles(g: KernelGraph, max_configs: int = 128,
         idx = rng.choice(len(valid), max_configs, replace=False)
         valid = [valid[i] for i in sorted(idx)]
     return valid
+
+
+@dataclass
+class TileKernelRecord:
+    """One kernel with its measured tile-size sweep."""
+    kernel: KernelGraph
+    tiles: list[tuple[int, ...]]
+    runtimes: np.ndarray               # [num_tiles] seconds (min of 3 runs)
+    program: str = ""
+    kernel_id: int = -1
+
+
+@dataclass
+class TileDataset:
+    records: list[TileKernelRecord] = field(default_factory=list)
+
+    @property
+    def num_samples(self) -> int:
+        return sum(len(r.tiles) for r in self.records)
+
+    def programs(self) -> list[str]:
+        return sorted({r.program for r in self.records})
+
+    def by_program(self) -> dict[str, list[TileKernelRecord]]:
+        out: dict[str, list[TileKernelRecord]] = {}
+        for r in self.records:
+            out.setdefault(r.program, []).append(r)
+        return out
+
+
+def fit_tile_normalizer(records: list["TileKernelRecord"]):
+    """Fit the feature normalizer over kernels *with representative tiles*.
+
+    The tile sub-vector is a kernel feature: min/max statistics must span
+    the actual tile range or every tile encodes to the same clipped value
+    (and the model cannot rank). Samples the smallest / median / largest
+    tile of every kernel.
+    """
+    from repro_torch.core.features import fit_normalizer
+    graphs = []
+    for r in records:
+        picks = {0, len(r.tiles) // 2, len(r.tiles) - 1}
+        for i in picks:
+            graphs.append(r.kernel.with_tile(r.tiles[i]))
+    return fit_normalizer(graphs)
+
+
+def build_tile_records(kernels: list[KernelGraph], sim: TPUSimulator,
+                       *, max_configs_per_kernel: int = 48,
+                       max_kernel_nodes: int = 64, min_configs: int = 2,
+                       seed: int = 0) -> list[TileKernelRecord]:
+    """Partition-invariant record builder for the corpus store.
+
+    `build_tile_dataset` seeds each kernel's tile enumeration with a
+    running record counter, which couples every record to all kernels
+    before it — fine in one process, wrong when
+    `repro.launch.build_corpus` splits the corpus across workers. Here
+    the enumeration seed derives from (seed, kernel content hash), so any
+    partitioning of `kernels` yields the same records, and the store's
+    manifest hash is a pure function of the build spec.
+    """
+    records = []
+    for k in kernels:
+        if k.num_nodes > max_kernel_nodes:
+            continue
+        kseed = zlib.crc32(
+            f"{seed}:{k.canonical_hash(order_sensitive=True)}".encode())
+        tiles = enumerate_tiles(k, max_configs_per_kernel, sim.hw,
+                                seed=int(kseed % (2 ** 31)))
+        if len(tiles) < min_configs:
+            continue
+        runtimes = np.array([sim.measure(k.with_tile(t)) for t in tiles])
+        records.append(TileKernelRecord(
+            kernel=k, tiles=tiles, runtimes=runtimes, program=k.program))
+    return records
+
+
+def build_tile_dataset(programs: list[KernelGraph], sim: TPUSimulator,
+                       *, max_configs_per_kernel: int = 48,
+                       max_kernel_nodes: int = 64,
+                       min_configs: int = 2,
+                       extra_kernels: list[KernelGraph] | None = None,
+                       ) -> TileDataset:
+    """Fuse each program with the default heuristic, enumerate + measure."""
+    ds = TileDataset()
+    kid = 0
+    all_kernels: list[KernelGraph] = []
+    for prog in programs:
+        all_kernels.extend(apply_fusion(prog, default_fusion(prog)))
+    if extra_kernels:
+        all_kernels.extend(extra_kernels)
+    for k in all_kernels:
+        if k.num_nodes > max_kernel_nodes:
+            continue
+        tiles = enumerate_tiles(k, max_configs_per_kernel, sim.hw, seed=kid)
+        if len(tiles) < min_configs:
+            continue
+        runtimes = np.array([sim.measure(k.with_tile(t)) for t in tiles])
+        ds.records.append(TileKernelRecord(
+            kernel=k, tiles=tiles, runtimes=runtimes,
+            program=k.program, kernel_id=kid))
+        kid += 1
+    return ds

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
@@ -91,6 +93,23 @@ def check_one_device(kernel: str, **tensors) -> None:
         raise ValueError(f"{kernel}: tensors on more than one device: "
                          + ", ".join(f"{name} on {dev}"
                                      for name, dev in devices.items()))
+
+
+def check_no_grad(kernel: str, **tensors) -> None:
+    """Raises a RuntimeError when grad mode is on and one of `tensors`
+    requires grad. The kernels have no backward (nor have the TPU
+    kernels they replace): their outputs carry no `grad_fn`, so inside a
+    differentiated forward every parameter upstream of them would get no
+    gradient, silently. The CPU route refuses too, so that a forward
+    behaves alike on both devices."""
+    if not torch.is_grad_enabled():
+        return
+    needs = [name for name, t in tensors.items() if t.requires_grad]
+    if needs:
+        raise RuntimeError(
+            f"{kernel} has no backward, but {', '.join(needs)} require(s) "
+            "grad: train with use_pallas_aggregate=False, or run the "
+            "forward under torch.no_grad() / torch.inference_mode()")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,7 +4,8 @@ Counterpart of `repro.kernels.graph_aggregate` (the Pallas TPU kernel
 `graph_aggregate_bnd`). `graph_aggregate` launches the hand-written
 CUDA kernel `csrc/graph_aggregate.cu` for CUDA tensors and runs the plain
 PyTorch version `graph_aggregate_plain` for CPU tensors; any other device
-raises. `launches` counts kernel launches.
+raises, and so does a call in grad mode on an input that requires grad
+(the kernel has no backward). `launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -73,6 +74,7 @@ def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     memory, allocated for the call."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
+    build.check_no_grad("graph_aggregate", adj=adj, x=x, w=w)
     if x.device.type == "cpu":
         return graph_aggregate_plain(adj, x, w, act=act, mean=mean)
     if x.device.type != "cuda":

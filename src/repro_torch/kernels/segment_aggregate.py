@@ -10,10 +10,12 @@ Counterpart of `repro.kernels.segment_aggregate` (the Pallas TPU kernel
 `segment_aggregate` launches the hand-written CUDA kernel
 `csrc/segment_aggregate.cu` for CUDA tensors and runs the plain PyTorch
 version `segment_aggregate_plain` for CPU tensors; any other device
-raises. The kernel has one entry point per weight type, as the TPU
-kernel has one instantiation per type: `segment_aggregate_f32` for a
-float32 `w` and `segment_aggregate_i8` for an int8 `w` (the int8 serving
-path; `w_scale` holds its per-channel scales). It walks each
+raises, and so does a call in grad mode on an input that requires grad
+(the kernel has no backward). The kernel has one entry point per
+weight type, as the TPU kernel has one instantiation per type:
+`segment_aggregate_f32` for a float32 `w` and `segment_aggregate_i8`
+for an int8 `w` (the int8 serving path; `w_scale` holds its
+per-channel scales). It walks each
 destination's edges in CSR order, so the caller groups the edges once
 per batch and direction with `edge_csr` and reuses the result across
 hops. `launches` and `launches_i8` count the calls of the two variants
@@ -139,6 +141,8 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     [M, F] message scratch between them."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
+    build.check_no_grad("segment_aggregate", x=x, w=w, w_scale=w_scale,
+                        node_mask=node_mask)
     if x.device.type == "cpu":
         return segment_aggregate_plain(x, w, w_scale, edges.gather,
                                        edges.scatter, edges.edge_mask,

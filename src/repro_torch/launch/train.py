@@ -1,0 +1,184 @@
+"""Training launcher (counterpart of `repro.launch.train`).
+
+  cost-model — train the paper's learned performance model on a generated
+    corpus, on one device (the card by default): deterministic sampling,
+    atomic checkpoints in the JAX package's format, resume, and
+    --warm-start from another run's checkpoint (either package's):
+
+      PYTHONPATH=src python -m repro_torch.launch.train cost-model \
+          --task tile --steps 2000 --ckpt-dir ckpts/tile
+
+    The same flags and defaults as the reference. Not ported yet, so they
+    exit with an error: --from-store and --deltas (the corpus store,
+    ROADMAP Queue 1 item 4), --dp >= 1 and --compress-grads
+    (data-parallel training, item 5).
+
+  lm — the LM train step is not ported yet (ROADMAP Queue 1 item 6); the
+    subcommand exits with an error.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def train_cost_model(args) -> None:
+    from repro_torch.core.features import fit_normalizer
+    from repro_torch.core.model import CostModelConfig
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.corpus import filter_by_programs, split_programs
+    from repro_torch.data.fusion_dataset import build_fusion_dataset
+    from repro_torch.data.sampler import BalancedSampler, TileBatchSampler
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.data.tile_dataset import build_tile_dataset
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.trainer import CostModelTrainer, TrainerConfig
+
+    from repro_torch.core.device import resolve_device
+    resolve_device(args.device)      # no card: fail before building data
+    if args.num_hosts < 1:
+        raise SystemExit(f"--num-hosts must be >= 1, got {args.num_hosts}")
+    if not 0 <= args.host_id < args.num_hosts:
+        raise SystemExit(f"--host-id must be in [0, {args.num_hosts}), "
+                         f"got {args.host_id}")
+    if args.dp < 0 or args.mp < 1:
+        raise SystemExit(f"--dp must be >= 0 and --mp >= 1, "
+                         f"got dp={args.dp} mp={args.mp}")
+    if args.from_store or args.deltas:
+        raise SystemExit("--from-store/--deltas: the corpus store is not "
+                         "ported yet (ROADMAP Queue 1 item 4)")
+    if args.dp >= 1 or args.compress_grads:
+        raise SystemExit("--dp >= 1/--compress-grads: data-parallel "
+                         "training is not ported yet (ROADMAP Queue 1 "
+                         "item 5); use --dp 0")
+    if args.warm_start:
+        from repro_torch.training.checkpoint import latest_step
+        if latest_step(args.warm_start) is None:
+            raise SystemExit(f"--warm-start: no checkpoint found in "
+                             f"{args.warm_start!r}")
+        if args.warm_start == args.ckpt_dir:
+            raise SystemExit(
+                "--warm-start must point at a DIFFERENT run's checkpoint "
+                "directory — resuming the same --ckpt-dir is the default "
+                "behaviour (drop --warm-start), and fine-tuning in place "
+                "would overwrite the checkpoint being fine-tuned from")
+
+    want_kind = "tile" if args.task.startswith("tile") else "fusion"
+    sim = TPUSimulator()
+    programs = generate_corpus(args.programs, seed=args.seed)
+    split = split_programs([p.program for p in programs],
+                           method=args.split, seed=args.seed)
+    if want_kind == "tile":
+        ds = build_tile_dataset(programs, sim, max_configs_per_kernel=24)
+    else:
+        ds = build_fusion_dataset(programs, sim, configs_per_program=12)
+    recs = filter_by_programs(ds.records, split["train"])
+    mc = CostModelConfig(gnn=args.gnn, reduction=args.reduction,
+                         hidden_dim=args.hidden, opcode_embed_dim=32,
+                         max_nodes=args.max_nodes)
+    if want_kind == "tile":
+        from repro_torch.data.tile_dataset import fit_tile_normalizer
+        norm = fit_tile_normalizer(recs)
+        sampler = TileBatchSampler(recs, norm, kernels_per_batch=4,
+                                   configs_per_kernel=8,
+                                   max_nodes=args.max_nodes,
+                                   host_id=args.host_id,
+                                   num_hosts=args.num_hosts)
+    else:
+        norm = fit_normalizer([r.kernel for r in recs])
+        sampler = BalancedSampler(recs, norm, batch_size=32,
+                                  max_nodes=args.max_nodes,
+                                  host_id=args.host_id,
+                                  num_hosts=args.num_hosts)
+    tc = TrainerConfig(task=args.task, steps=args.steps,
+                       ckpt_every=args.ckpt_every, log_every=args.log_every,
+                       ckpt_dir=args.ckpt_dir,
+                       metrics_path=args.metrics_path,
+                       optim=AdamWConfig(lr=args.lr,
+                                         warmup_steps=args.warmup_steps))
+    trainer = CostModelTrainer(mc, tc, sampler, device=args.device)
+    if args.warm_start:
+        from_step = trainer.warm_start(args.warm_start,
+                                       reset_opt_step=not args.keep_opt_step)
+        print(f"warm-started from {args.warm_start} step {from_step} "
+              f"(LR warmup {'continues' if args.keep_opt_step else 'restarts'}"
+              f", {args.warmup_steps} warmup steps)")
+    res = trainer.run(resume=not args.no_resume)
+    print(f"done: step={res['step']} loss={res['loss']:.5f} "
+          f"wall={res['wall']:.1f}s interrupted={res['interrupted']} "
+          f"device={trainer.device}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    cm = sub.add_parser("cost-model")
+    cm.add_argument("--task", default="tile",
+                    choices=["tile", "fusion", "tile_mse", "fusion_mse"])
+    cm.add_argument("--steps", type=int, default=2000)
+    cm.add_argument("--programs", type=int, default=48)
+    cm.add_argument("--from-store", default="",
+                    help="not ported yet (ROADMAP Queue 1 item 4)")
+    cm.add_argument("--deltas", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 4)")
+    cm.add_argument("--warm-start", default="",
+                    help="checkpoint directory of ANOTHER run (either "
+                         "package's) to fine-tune from: params + AdamW "
+                         "moments are restored, this run still starts at "
+                         "step 0")
+    cm.add_argument("--warmup-steps", type=int, default=0,
+                    help="LR warmup steps (AdamWConfig.warmup_steps); "
+                         "pair with --warm-start for the short re-warmup "
+                         "that protects a fine-tuned checkpoint")
+    cm.add_argument("--keep-opt-step", action="store_true",
+                    help="with --warm-start: keep the optimizer's step "
+                         "counter (LR schedule continues) instead of "
+                         "resetting it (warmup restarts)")
+    cm.add_argument("--split", default="random",
+                    choices=["random", "manual"])
+    cm.add_argument("--gnn", default="graphsage")
+    cm.add_argument("--reduction", default="transformer")
+    cm.add_argument("--hidden", type=int, default=64)
+    cm.add_argument("--max-nodes", type=int, default=48)
+    cm.add_argument("--lr", type=float, default=2e-3)
+    cm.add_argument("--seed", type=int, default=0)
+    cm.add_argument("--ckpt-dir", default="ckpts/cost_model")
+    cm.add_argument("--ckpt-every", type=int, default=500)
+    cm.add_argument("--log-every", type=int, default=100)
+    cm.add_argument("--metrics-path", default="")
+    cm.add_argument("--compress-grads", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 5)")
+    cm.add_argument("--no-resume", action="store_true")
+    cm.add_argument("--dp", type=int, default=0,
+                    help="data-parallel mesh size: only 0 (one device) "
+                         "runs here; >= 1 is ROADMAP Queue 1 item 5")
+    cm.add_argument("--mp", type=int, default=1,
+                    help="model mesh axis size (params replicated)")
+    cm.add_argument("--num-hosts", type=int, default=1,
+                    help="total training hosts; this host's sampler draws "
+                         "from its disjoint record shard")
+    cm.add_argument("--host-id", type=int, default=0,
+                    help="this host's index in [0, --num-hosts)")
+    cm.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: the card; "
+                         "'cpu' runs the CPU path)")
+
+    lm_p = sub.add_parser("lm")
+    lm_p.add_argument("--arch", required=True)
+    lm_p.add_argument("--smoke", action="store_true")
+    lm_p.add_argument("--steps", type=int, default=5)
+    lm_p.add_argument("--seq", type=int, default=64)
+    lm_p.add_argument("--batch", type=int, default=4)
+    lm_p.add_argument("--seed", type=int, default=0)
+
+    args = ap.parse_args(argv)
+    if args.cmd == "cost-model":
+        train_cost_model(args)
+    else:
+        raise SystemExit("lm: the LM train step is not ported yet (ROADMAP "
+                         "Queue 1 item 6); repro_torch.launch.serve runs "
+                         "the ported LM forward")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
-"""Core building blocks: dense, embedding, layernorm, l2_normalize, MLP.
+"""Core building blocks: dense, embedding, layernorm, l2_normalize, MLP,
+dropout.
 
 Counterpart of `repro.nn.core`. Parameters are the same nested dicts of
 leaves (`{"w": ...}`, `{"table": ...}`, `{"layers": [...]}`), here holding
 `torch.Tensor`s; the forward code is plain functions on tensors.
-Initialisers take an explicit `torch.Generator`.
+Initialisers and dropout take an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -102,3 +103,20 @@ def mlp_apply(params: dict, x: torch.Tensor, *,
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+# ----------------------------------------------------------------------------
+# Dropout (explicit generator, identity unless training)
+# ----------------------------------------------------------------------------
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The identity when not
+    training, when rate <= 0 or when no generator is given. The generator
+    must live on `x`'s device."""
+    if not training or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -2,7 +2,8 @@
 
 Counterpart of `repro.nn.transformer`: pre-norm encoder blocks with masked
 multi-head self-attention over node embeddings, in plain tensor ops.
-Inference only, so dropout is the identity.
+Dropout on the attention branch runs only when training with a
+generator (`nn.core.dropout`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 from repro_torch.nn.core import (
     dense_apply,
     dense_init,
+    dropout,
     layernorm_apply,
     layernorm_init,
 )
@@ -66,11 +68,15 @@ def encoder_init(gen: torch.Generator, dim: int, num_heads: int,
 
 
 def encoder_apply(params: dict, x: torch.Tensor, mask: torch.Tensor | None,
-                  num_heads: int) -> torch.Tensor:
+                  num_heads: int, *, dropout_rate: float = 0.0,
+                  generator: torch.Generator | None = None,
+                  training: bool = False) -> torch.Tensor:
     """Returns per-node encodings [B, N, D] (reduction handled by caller)."""
     for blk in params["blocks"]:
-        x = x + mha_apply(blk["attn"], layernorm_apply(blk["ln1"], x), mask,
-                          num_heads)
+        h = mha_apply(blk["attn"], layernorm_apply(blk["ln1"], x), mask,
+                      num_heads)
+        x = x + dropout(h, dropout_rate, generator=generator,
+                        training=training)
         h = dense_apply(blk["fc1"], layernorm_apply(blk["ln2"], x))
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")

@@ -1,0 +1,305 @@
+"""Cost-model trainer, single device, in PyTorch.
+
+Counterpart of `repro.training.trainer` on one device:
+  * deterministic batch streams (seed, step): the sampler's `batch(step)`
+    is pure, and the step's dropout generator is seeded anew from
+    (seed + 1, step), so a run resumed from a checkpoint reproduces the
+    uninterrupted one,
+  * SIGTERM/SIGINT-safe: a final checkpoint is written on the way out,
+  * periodic atomic checkpoints in the JAX package's format
+    (`training.checkpoint`) + automatic resume from the latest, and
+    `warm_start` from another run's checkpoint (either package's),
+  * metrics streamed to JSONL with the reference's keys (`step`, `loss`,
+    `lr`, `grad_norm`, `wall`, `eval/*`).
+
+A step is the forward with dropout (`training=True`), `loss.backward()`
+and the ported AdamW (`training.optim.adamw_update`) under
+`torch.no_grad()`, written into the model's parameters in place.
+Batches are whatever the sampler yields: dense `GraphBatch`, packed
+`SparseGraphBatch` or `SegmentedGraphBatch`, as numpy; each step moves
+its batch to the trainer's device. The device is explicit (`"cuda"` by
+default); asking for the card without one raises.
+
+The aggregation kernels have no backward in either package, so the
+trainer refuses `use_pallas_aggregate=True` on every layout (the kernel
+wrappers also refuse inputs that require grad). Not ported yet, and
+refused with `NotImplementedError` (ROADMAP Queue 1 item 5): the
+data-parallel mesh step (`dp >= 1`), int8-compressed gradients and the
+prefetching input pipeline.
+"""
+from __future__ import annotations
+
+import json
+import os
+import signal
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.losses import log_mse_loss, mse_loss, \
+    pairwise_rank_loss
+from repro_torch.core.model import CostModel, CostModelConfig, \
+    batch_to_device, cost_model_apply, cost_model_init
+from repro_torch.training import checkpoint as ckpt_lib
+from repro_torch.training.optim import AdamWConfig, adamw_init, \
+    adamw_update, tree_leaves, tree_map
+
+_ITEM5 = "ROADMAP Queue 1 item 5 (input pipeline and data-parallel training)"
+
+
+@dataclass
+class TrainerConfig:
+    task: str = "tile"             # tile | fusion | fusion_mse | tile_mse
+    rank_phi: str = "hinge"              # hinge | logistic (tile task)
+    steps: int = 2000
+    ckpt_every: int = 500
+    log_every: int = 100
+    keep_ckpts: int = 3
+    seed: int = 0
+    ckpt_dir: str = ""
+    metrics_path: str = ""
+    # the reference's data-parallel and input-pipeline switches: only
+    # their defaults run here (the rest is ROADMAP Queue 1 item 5)
+    compress_grads: bool = False
+    dp: int = 0
+    prefetch: int = 0
+    optim: AdamWConfig = field(default_factory=AdamWConfig)
+
+
+def _grad_of(p: torch.Tensor) -> torch.Tensor:
+    # a leaf the loss does not reach gets a zero gradient, as under jax.grad
+    return torch.zeros_like(p) if p.grad is None else p.grad
+
+
+class CostModelTrainer:
+    def __init__(self, model_cfg: CostModelConfig, cfg: TrainerConfig,
+                 sampler, *, device: str | torch.device = "cuda"):
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.step = 0
+        self._stop = False
+        self._metrics_f = None
+
+        if cfg.dp < 0:
+            raise ValueError(f"dp must be >= 0, got dp={cfg.dp}")
+        if cfg.dp >= 1:
+            raise NotImplementedError(
+                f"the data-parallel mesh step (dp={cfg.dp}) is not ported "
+                f"yet: {_ITEM5}; use dp=0")
+        if cfg.compress_grads:
+            raise NotImplementedError(
+                f"compress_grads (int8 error-feedback all-reduce) is not "
+                f"ported yet: {_ITEM5}")
+        if cfg.prefetch > 0:
+            raise NotImplementedError(
+                f"prefetch={cfg.prefetch} (the background input pipeline) "
+                f"is not ported yet: {_ITEM5}; use prefetch=0")
+        if model_cfg.precision != "f32":
+            raise ValueError(
+                f"training runs in f32, got precision="
+                f"{model_cfg.precision!r} — train the f32 model and "
+                "quantize afterwards (repro_torch.quant.quantize_params)")
+        if model_cfg.use_pallas_aggregate:
+            raise ValueError(
+                "use_pallas_aggregate routes the GNN through the "
+                "graph_aggregate / segment_aggregate kernels, which have no "
+                "backward in either package (the TPU kernels have no VJP "
+                "either) — they are inference-only; train with "
+                "use_pallas_aggregate=False and serve with it on")
+        if (model_cfg.adjacency in ("sparse", "segmented")
+                and model_cfg.gnn == "gat" and not model_cfg.directed):
+            raise ValueError(
+                "undirected GAT is dense-only (DESIGN.md §4) — use "
+                "adjacency='dense'")
+
+        self.device = resolve_device(device)
+        self.sampler = sampler
+        self.model: CostModel = cost_model_init(
+            torch.Generator().manual_seed(cfg.seed), model_cfg,
+            device=self.device).requires_grad_(True)
+        self.params = self.model.tree()       # leaves: the model's Parameters
+        self.opt_state = adamw_init(self.params)
+
+    # ------------------------------------------------------------------
+    def loss(self, b, *, generator: torch.Generator | None = None,
+             training: bool = False) -> torch.Tensor:
+        """The task's loss on one sampler batch (`TileBatch` or
+        `FusionBatch`, numpy), on the trainer's device. Dropout runs only
+        with `training=True` and a generator."""
+        dev = self.device
+        graphs = batch_to_device(b.graphs, dev)
+        targets = torch.from_numpy(np.asarray(b.targets)).to(dev)
+        valid = torch.from_numpy(np.asarray(b.valid)).to(dev)
+        preds = cost_model_apply(self.params, self.model_cfg, graphs,
+                                 generator=generator, training=training)
+        task = self.cfg.task
+        if task == "tile":
+            group_ids = getattr(b, "group_ids",
+                                np.zeros_like(b.targets, np.int32))
+            return pairwise_rank_loss(
+                preds, targets, torch.from_numpy(np.asarray(group_ids)).to(
+                    dev), valid, phi=self.cfg.rank_phi)
+        if task == "fusion":
+            return log_mse_loss(preds, targets, valid)
+        if task == "fusion_mse":
+            return mse_loss(preds, targets, valid)
+        if task == "tile_mse":
+            # ablation row 'MSE loss (not rank)': absolute (log) runtimes
+            return log_mse_loss(preds, targets, valid)
+        raise ValueError(f"unknown task {task!r}")
+
+    def step_generator(self, step: int) -> torch.Generator:
+        """The dropout generator of `step`: a pure function of
+        (seed + 1, step), seeded anew for every step."""
+        seed = np.random.SeedSequence([self.cfg.seed + 1, step]) \
+            .generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _train_step(self, b) -> dict:
+        loss = self.loss(b, generator=self.step_generator(self.step),
+                         training=True)
+        loss.backward()
+        with torch.no_grad():
+            grads = tree_map(_grad_of, self.params)
+            new_params, self.opt_state, stats = adamw_update(
+                self.params, grads, self.opt_state, self.cfg.optim)
+            for p, new in zip(tree_leaves(self.params),
+                              tree_leaves(new_params)):
+                p.copy_(new)
+                p.grad = None
+        stats["loss"] = loss.detach()
+        return stats
+
+    def _load_params(self, params) -> None:
+        with torch.no_grad():
+            for p, v in zip(tree_leaves(self.params), tree_leaves(params)):
+                p.copy_(v)
+
+    # ------------------------------------------------------------------
+    def _install_signal_handlers(self) -> dict:
+        """Route SIGTERM/SIGINT to a stop flag; returns the handlers they
+        replace (none off the main thread, where signals cannot be set)."""
+        def handler(signum, frame):
+            self._stop = True
+        old = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old[sig] = signal.signal(sig, handler)
+        except ValueError:
+            pass   # not on main thread (e.g. under pytest plugins)
+        return old
+
+    def _log(self, record: dict):
+        if self.cfg.metrics_path:
+            if self._metrics_f is None:
+                os.makedirs(os.path.dirname(self.cfg.metrics_path) or ".",
+                            exist_ok=True)
+                self._metrics_f = open(self.cfg.metrics_path, "a")
+            self._metrics_f.write(json.dumps(record) + "\n")
+            self._metrics_f.flush()
+
+    def save(self):
+        if not self.cfg.ckpt_dir:
+            return
+        state = {"params": self.params, "opt": self.opt_state}
+        ckpt_lib.save_checkpoint(
+            self.cfg.ckpt_dir, self.step, state,
+            meta={"model_cfg": self.model_cfg.to_dict(),
+                  "task": self.cfg.task},
+            keep=self.cfg.keep_ckpts)
+
+    def maybe_resume(self) -> bool:
+        if not self.cfg.ckpt_dir:
+            return False
+        if ckpt_lib.latest_step(self.cfg.ckpt_dir) is None:
+            return False
+        like = {"params": self.params, "opt": self.opt_state}
+        state, step, _ = ckpt_lib.restore_checkpoint(self.cfg.ckpt_dir, like)
+        self._load_params(state["params"])
+        self.opt_state = state["opt"]
+        self.step = step
+        return True
+
+    def warm_start(self, ckpt_dir: str, *, step: int | None = None,
+                   restore_opt: bool = True,
+                   reset_opt_step: bool = True) -> int:
+        """Initialize from ANOTHER run's checkpoint (either package's),
+        keeping this run fresh — the flywheel fine-tune path.
+
+        Unlike `maybe_resume` (which continues the same run: `self.step`
+        jumps to the checkpoint step), `warm_start` copies the
+        checkpoint's params — and, with `restore_opt`, the AdamW moments —
+        but leaves ``self.step`` at 0, so the full `cfg.steps` run.
+        `reset_opt_step=True` also zeroes the optimizer's step counter,
+        restarting the `AdamWConfig.warmup_steps` LR warmup;
+        `reset_opt_step=False` keeps it, so the schedule continues.
+
+        Returns the checkpoint step warm-started from. `run`'s default
+        ``resume=True`` still prefers a checkpoint in THIS run's
+        `cfg.ckpt_dir` if one exists.
+        """
+        pick = ckpt_lib.latest_step(ckpt_dir) if step is None else step
+        if pick is None:
+            raise FileNotFoundError(
+                f"no checkpoint to warm-start from in {ckpt_dir!r}")
+        like = {"params": self.params}
+        if restore_opt:
+            like["opt"] = self.opt_state
+        state, ck_step, _ = ckpt_lib.restore_checkpoint(ckpt_dir, like,
+                                                        step=pick)
+        self._load_params(state["params"])
+        if restore_opt:
+            opt = dict(state["opt"])
+            if reset_opt_step:
+                opt["step"] = torch.zeros_like(opt["step"])
+            self.opt_state = opt
+        self.step = 0
+        return ck_step
+
+    # ------------------------------------------------------------------
+    def run(self, steps: int | None = None, *, resume: bool = True,
+            eval_fn: Callable[[CostModel, int], dict] | None = None,
+            eval_every: int = 0) -> dict:
+        """Train up to step `steps` (default `cfg.steps`). `eval_fn(model,
+        step)` runs every `eval_every` steps; its dict is logged under
+        `eval/`. Returns {"step", "loss" (of the last logged step),
+        "wall", "interrupted"}."""
+        total = steps if steps is not None else self.cfg.steps
+        if resume:
+            self.maybe_resume()
+        old = self._install_signal_handlers()
+        try:
+            return self._run_loop(total, eval_fn, eval_every)
+        finally:
+            for sig, h in old.items():
+                signal.signal(sig, h)
+
+    def _run_loop(self, total: int, eval_fn, eval_every) -> dict:
+        cfg = self.cfg
+        t0 = time.time()
+        last_loss = float("nan")
+        while self.step < total and not self._stop:
+            stats = self._train_step(self.sampler.batch(self.step))
+            self.step += 1
+            if self.step % cfg.log_every == 0 or self.step == total:
+                last_loss = float(stats["loss"])
+                self._log({"step": self.step, "loss": last_loss,
+                           "lr": float(stats["lr"]),
+                           "grad_norm": float(stats["grad_norm"]),
+                           "wall": time.time() - t0})
+            if cfg.ckpt_every and self.step % cfg.ckpt_every == 0:
+                self.save()
+            if eval_fn and eval_every and self.step % eval_every == 0:
+                ev = eval_fn(self.model, self.step)
+                self._log({"step": self.step, **{f"eval/{k}": v
+                                                 for k, v in ev.items()}})
+        self.save()
+        if self._metrics_f:
+            self._metrics_f.close()
+            self._metrics_f = None
+        return {"step": self.step, "loss": last_loss,
+                "wall": time.time() - t0, "interrupted": self._stop}

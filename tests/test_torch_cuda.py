@@ -586,3 +586,92 @@ def test_smoke_lm_on_card_flash_kernel_matches_chunked(arch):
             params, c, lm._embed_inputs(params, c, {"tokens": tokens}))))
     assert abs(losses[0] - losses[1]) <= 1e-5
     torch.testing.assert_close(logits[0], logits[1], rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------- training
+def _train_setup(layout, ckpt_dir=""):
+    from repro_torch.core.model import CostModelConfig
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.sampler import TileBatchSampler
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.data.tile_dataset import build_tile_dataset, \
+        fit_tile_normalizer
+    from repro_torch.training.trainer import TrainerConfig
+
+    recs = build_tile_dataset(generate_corpus(6, seed=0), TPUSimulator(),
+                              max_configs_per_kernel=8).records
+    norm = fit_tile_normalizer(recs)
+    sampler = TileBatchSampler(recs, norm, kernels_per_batch=4,
+                               configs_per_kernel=8, max_nodes=64,
+                               adjacency=layout)
+    cfg = CostModelConfig(adjacency=layout)
+    tc = TrainerConfig(task="tile", ckpt_every=0, log_every=1,
+                       ckpt_dir=ckpt_dir)
+    return cfg, tc, sampler, recs, norm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_training_on_the_card_lowers_the_loss(layout):
+    """20 steps at the default width on the card: finite, falling loss,
+    with no aggregation kernel launched (training runs them off)."""
+    _need_card()
+    from repro_torch.training.trainer import CostModelTrainer
+    cfg, tc, sampler, _, _ = _train_setup(layout)
+    tr = CostModelTrainer(cfg, tc, sampler)
+    assert tr.device.type == "cuda"
+    before = (ga.launches, sa.launches)
+    first = tr.run(1, resume=False)["loss"]
+    last = tr.run(20, resume=False)["loss"]
+    assert np.isfinite(first) and np.isfinite(last)
+    assert last < first
+    assert (ga.launches, sa.launches) == before
+
+
+@pytest.mark.cuda
+def test_aggregation_wrappers_refuse_grad_on_the_card():
+    _need_card()
+    adj, x, w = (_t(a) for a in _ga_inputs(2, 17, 192, 192, seed=0))
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="graph_aggregate has no backward"):
+        ga.graph_aggregate(adj, x, w)
+    xs, ws, scale, gather, scatter, em, nm = (
+        _t(a) for a in _sa_inputs(64, 192, 192, 300, seed=0))
+    edges = sa.edge_csr(gather, scatter, em, 64)
+    xs.requires_grad_(True)
+    with pytest.raises(RuntimeError,
+                       match="segment_aggregate has no backward"):
+        sa.segment_aggregate(xs, ws, scale, edges, nm)
+    with torch.no_grad():
+        ga.graph_aggregate(adj, x, w)
+        sa.segment_aggregate(xs, ws, scale, edges, nm)
+
+
+@pytest.mark.cuda
+def test_trained_checkpoint_serves_with_the_kernels(tmp_path):
+    """A checkpoint trained on the card serves through both aggregation
+    kernels within 1e-4·max|pred| of the kernels off."""
+    _need_card()
+    import dataclasses
+    from repro_torch.core.evaluate import make_predict_fn
+    from repro_torch.core.params import load_jax_checkpoint
+    from repro_torch.serving import CostModelService
+    from repro_torch.training.trainer import CostModelTrainer
+    d = str(tmp_path / "ck")
+    cfg, tc, sampler, recs, norm = _train_setup("dense", ckpt_dir=d)
+    CostModelTrainer(cfg, tc, sampler).run(20, resume=False)
+    graphs = [r.kernel.with_tile(t) for r in recs[:6] for t in r.tiles]
+    for layout, kernel in (("dense", ga), ("sparse", sa)):
+        preds = {}
+        for kernels in (True, False):
+            scfg = dataclasses.replace(cfg, adjacency=layout,
+                                       use_pallas_aggregate=kernels)
+            model = load_jax_checkpoint(d, scfg)
+            svc = CostModelService(model, scfg, norm,
+                                   predict_fn=make_predict_fn(scfg))
+            before = kernel.launches
+            preds[kernels] = svc.predict_many(graphs)
+            assert (kernel.launches > before) == kernels
+        tol = 1e-4 * max(1.0, float(np.abs(preds[False]).max()))
+        assert np.all(np.isfinite(preds[True]))
+        assert float(np.abs(preds[True] - preds[False]).max()) <= tol
