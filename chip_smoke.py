@@ -91,6 +91,34 @@ Phases, each reported on its own lines; any failure exits non-zero:
              bf16 ones released): `loss_fn` over the same 2 x 8192 tokens
              with the flash kernel (24 launches of the split-TF32 kernel)
              and with `chunked_attention`, held as in 9 to f32 limits.
+12. autotune — what consumes the scores, on the models 7 trained: the
+             Table-2 tile task (`eval_tile_task`) over the 42 held-out
+             tile records through the trained sparse service
+             (segment_aggregate) and dense one (graph_aggregate), each
+             against the kernels off (scores within 1e-4·max|pred|,
+             metrics moved only by ties within it), and analytical; the
+             tile autotuner (`autotune_program_tiles`, max_configs 24 as
+             bench_fig4.py) on the held-out programs' default-fused
+             kernels: learned top-1 and top-10 through both layouts (picks
+             equal to the kernels off but for ties), analytical top-10 and
+             exhaustive (no total below the exhaustive one); the fusion
+             annealer on examples/fusion_search.py's three programs (6 s
+             budget, 300 model steps) scored by `model_cost_fn` of the
+             trained segmented fusion model (speedup >= 1, hardware evals
+             within the budget, every scored decision re-scored with the
+             kernels off); a `CostModelServer` on 127.0.0.1:0 over the
+             trained sparse service with 4 client threads replaying the
+             stream (answers as in process, no error frames), a planted
+             drop (the client's clean error), snapshot -> restart ->
+             replay (100 % hits), and one round with the model in int8
+             (segment_aggregate_i8).
+13. gat-lstm — the stream through GAT (dense, sparse) and graphsage +
+             LSTM (dense with graph_aggregate, sparse with
+             segment_aggregate) at the default width, seed-0 weights:
+             layouts agree, kernels on vs off agree, card vs CPU of the
+             same weights agree; one segmented graphsage + LSTM pass over
+             a 10k-node program, timed; 50 dense training steps each of
+             GAT and of LSTM (finite losses, the held-out loss falls).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -610,12 +638,13 @@ def _launches() -> dict:
             "flash_attention_f32": fa.launches_f32, "ssd_scan": ss.launches}
 
 
-def serve(label, make_service, requests, kernels, tag="serve") -> dict:
+def serve(label, make_service, requests, kernels, tag="serve",
+          profiled=True) -> dict:
     """One path: warm-up pass, the timed pass with every launch count set
-    to 0 just before and read just after, a profiled pass, and the same
-    stream with the kernels off. `make_service(use_kernels)` builds a
-    fresh service; each kernel in `kernels` must have launched. Lines
-    start with `[tag]`."""
+    to 0 just before and read just after, a profiled pass (unless not
+    `profiled`), and the same stream with the kernels off.
+    `make_service(use_kernels)` builds a fresh service; each kernel in
+    `kernels` must have launched. Lines start with `[tag]`."""
     import numpy as np
     import torch
     from repro_torch.serving.replay import run_replay
@@ -632,17 +661,17 @@ def serve(label, make_service, requests, kernels, tag="serve") -> dict:
     dt = time.perf_counter() - t0
     launches = _launches()
     st = svc.stats()
-    # where the time goes: one more pass on a fresh service, profiled
-    prof_svc = make_service(True)
-    prof, wall = device_profile(
-        lambda: run_replay(prof_svc.predict_many, requests))
-    busy = sum(us for _, us in prof.values()) / 1e6
-    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
-    log(f"[{tag}] {label} profiled pass: wall {wall:.3f} s, device busy "
-        f"{busy:.4f} s ({busy / wall:.1%}), "
-        f"{sum(c for c, _ in prof.values())} kernel launches")
-    for name, (count, us) in top:
-        log(f"[{tag}]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
+    if profiled:    # where the time goes: one more pass, profiled
+        prof_svc = make_service(True)
+        prof, wall = device_profile(
+            lambda: run_replay(prof_svc.predict_many, requests))
+        busy = sum(us for _, us in prof.values()) / 1e6
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+        log(f"[{tag}] {label} profiled pass: wall {wall:.3f} s, device busy "
+            f"{busy:.4f} s ({busy / wall:.1%}), "
+            f"{sum(c for c, _ in prof.values())} kernel launches")
+        for name, (count, us) in top:
+            log(f"[{tag}]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
     ref, _ = run_replay(make_service(False).predict_many, requests)
     got, want = np.concatenate(preds), np.concatenate(ref)
     err = float(np.max(np.abs(got - want)))
@@ -758,7 +787,9 @@ def _train_data() -> dict:
     d = {"tile_train": filter_by_programs(tiles.records, split["train"]),
          "tile_test": filter_by_programs(tiles.records, split["test"]),
          "fusion_test": filter_by_programs(fusion.records, split["test"]),
-         "whole": whole}
+         "whole": whole,
+         "test_programs": [p for p in programs
+                           if p.program in set(split["test"])]}
     d["tile_norm"] = fit_tile_normalizer(d["tile_train"])
     d["whole_norm"] = fit_normalizer([r.kernel for r in whole])
     log(f"[train] data: {TRAIN_PROGRAMS} programs (the CLI's default, not "
@@ -796,12 +827,12 @@ def _held_loss(trainer, batch) -> float:
 
 
 def train_run(label, trainer, steps, held, *, timed, profiled,
-              gate_held=True) -> dict:
+              gate_held=True, tag="train") -> dict:
     """Drive `trainer` from step 0 to `steps`: step 1 alone (its loss), a
     window of `timed` steps between CUDA events ended by a synchronize,
     a profiled window of `profiled` steps, then on to the end. Fails on a
     non-finite loss, and with `gate_held` unless the held-out loss of the
-    final model is below the step-0 model's."""
+    final model is below the step-0 model's. Lines start with `[tag]`."""
     import numpy as np
     import torch
     torch.cuda.synchronize()
@@ -826,7 +857,7 @@ def train_run(label, trainer, steps, held, *, timed, profiled,
     held1 = _held_loss(trainer, held)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     cfg = trainer.model_cfg
-    log(f"[train] {label}: {ms:.3f} ms/step ({1e3 / ms:.1f} steps/s, "
+    log(f"[{tag}] {label}: {ms:.3f} ms/step ({1e3 / ms:.1f} steps/s, "
         f"CUDA events over {timed} steps), loss step 1 {first:.6f} -> step "
         f"{trainer.step} {last:.6f}, held-out loss {held0:.6f} -> "
         f"{held1:.6f}, device busy {busy:.4f} s of {wall:.3f} s "
@@ -837,7 +868,7 @@ def train_run(label, trainer, steps, held, *, timed, profiled,
         f"task={trainer.cfg.task})")
     top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
     for name, (count, us) in top:
-        log(f"[train]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
+        log(f"[{tag}]   {us / 1e3:9.3f} ms {count:6d}x  {_short(name)}")
     if not (np.isfinite(first) and np.isfinite(last)
             and np.isfinite(held0) and np.isfinite(held1)):
         raise AssertionError(f"{label}: non-finite loss")
@@ -893,7 +924,9 @@ def trained_services(data, ckpt_dir, cfg, layout: str):
     return make
 
 
-def phase_train(card: str, ckpt_root: str) -> None:
+def phase_train(card: str, ckpt_root: str) -> dict:
+    """Returns the trained models ({"dense", "sparse", "segmented"}: the
+    trainers) and the data, for phases 12 and 13."""
     from repro_torch.core.model import CostModelConfig
     from repro_torch.data.sampler import BalancedSampler
     log(f"[train] on {card}")
@@ -943,6 +976,8 @@ def phase_train(card: str, ckpt_root: str) -> None:
             [kernel], tag="train")
     _agree("trained checkpoint, sparse vs dense layout",
            served["sparse"]["preds"], served["dense"]["preds"], tag="train")
+    return {"data": data, "dense": runs["dense"], "sparse": runs["sparse"],
+            "segmented": seg}
 
 
 # --------------------------------------------------------------------- 8
@@ -1493,6 +1528,498 @@ def lm_serve(cfg, params) -> None:
         raise AssertionError("lm-serve: decode vs forward out of tolerance")
 
 
+# -------------------------------------------------------------------- 12
+TILE_MAX_CONFIGS = 24      # bench_fig4.py
+TILE_MAX_NODES = 64        # bench_fig4.py keeps kernels of <= 64 nodes
+# examples/fusion_search.py's programs and its model + HW budget
+FUSION_PROGRAMS = (("attention", 1), ("rnn", 2), ("norm", 0))
+FUSION_BUDGET_S, FUSION_EVAL_S, FUSION_MODEL_STEPS = 6.0, 2.0, 300
+SOCKET_CLIENTS = 4
+AGG_KERNELS = ("graph_aggregate", "segment_aggregate", "segment_aggregate_i8")
+
+
+def _tol(want) -> float:
+    """The serving agreement limit: 1e-4 · max(1, max|pred|)."""
+    import numpy as np
+    return 1e-4 * max(1.0, float(np.max(np.abs(want))))
+
+
+def _timed(svc):
+    """`svc` with its `predict_many` timed: wall seconds add up in
+    `svc.scoring_s` (predictions come back to the host, so each call
+    ends synchronized)."""
+    svc.scoring_s = 0.0
+    inner = svc.predict_many
+
+    def predict_many(graphs):
+        t0 = time.perf_counter()
+        out = inner(graphs)
+        svc.scoring_s += time.perf_counter() - t0
+        return out
+    svc.predict_many = predict_many
+    return svc
+
+
+def _trained_service(trainer, norm, layout: str, use_kernels: bool):
+    """A service over a model trained in phase 7 (the trainer's own
+    parameters, as its checkpoint holds them), kernels on or off."""
+    import dataclasses
+    from repro_torch.core.evaluate import make_predict_fn
+    from repro_torch.serving import CostModelService
+    cfg = dataclasses.replace(trainer.model_cfg, adjacency=layout,
+                              use_pallas_aggregate=use_kernels)
+    return _timed(CostModelService(trainer.model, cfg, norm,
+                                   predict_fn=make_predict_fn(cfg)))
+
+
+def _ties(scores, tol) -> int:
+    """Candidate pairs of one list whose scores lie within `tol`."""
+    import numpy as np
+    s = np.sort(np.asarray(scores))
+    return int(sum(np.sum(s[i + 1:] - s[i] <= tol) for i in range(len(s))))
+
+
+def table2(label, on, off, records) -> None:
+    """`eval_tile_task` with the kernels on and off. The scores must agree
+    within the serving limit; a program's metrics may differ only where
+    it holds candidates tied within it."""
+    import numpy as np
+    from repro_torch.core.evaluate import eval_tile_task
+    from repro_torch.data.tile_dataset import TileDataset
+    ds = TileDataset(list(records))
+    logs = {"on": [], "off": []}
+
+    def recording(svc, out):
+        score = svc.tile_scorer()
+
+        def scorer(kernel, tiles):
+            s = score(kernel, tiles)
+            out.append(s)
+            return s
+        return scorer
+    t0 = time.perf_counter()
+    res = eval_tile_task(ds, recording(on, logs["on"]))
+    wall = time.perf_counter() - t0
+    ref = eval_tile_task(ds, recording(off, logs["off"]))
+    got, want = np.concatenate(logs["on"]), np.concatenate(logs["off"])
+    err, tol = float(np.max(np.abs(got - want))), _tol(want)
+    ties, i = {}, 0
+    for prog, recs in ds.by_program().items():
+        ties[prog] = sum(_ties(s, tol) for s in logs["on"][i:i + len(recs)])
+        i += len(recs)
+    moved = [p for p in res["per_program"]
+             if res["per_program"][p] != ref["per_program"][p]]
+    log(f"[autotune] table 2 tile task, {label}: median APE "
+        f"{res['median_ape']:.4f} mean APE {res['mean_ape']:.4f} median "
+        f"tau {res['median_kendall']:.4f} mean tau "
+        f"{res['mean_kendall']:.4f} over {len(res['per_program'])} "
+        f"programs, {len(got)} queries in {wall:.3f} s; kernels off: "
+        f"median APE {ref['median_ape']:.4f} mean tau "
+        f"{ref['mean_kendall']:.4f}; max|on - off| {err:.3e} (tol "
+        f"{tol:.3e}); {sum(ties.values())} candidate pairs tied within "
+        f"tol; programs whose metrics moved: {moved}")
+    if not err <= tol:
+        raise AssertionError(f"table 2 {label}: scores {err} > {tol}")
+    for p in moved:
+        if not ties[p]:
+            raise AssertionError(f"table 2 {label}: {p}'s metrics moved "
+                                 f"with the kernels off and no tie")
+
+
+def _picks_agree(label, kernels, on_res, off_res, on_svc, tol) -> int:
+    """The picks of the kernels-on run equal those of the kernels-off
+    run, but for candidates tied within `tol`; returns the ties."""
+    ties = 0
+    for k, a, b in zip(kernels, on_res.results, off_res.results):
+        if a.chosen_tile == b.chosen_tile:
+            continue
+        s_on, s_off = on_svc.predict_many([k.with_tile(a.chosen_tile),
+                                           k.with_tile(b.chosen_tile)])
+        if not abs(float(s_on) - float(s_off)) <= tol:
+            raise AssertionError(
+                f"{label}: {k.name} picks {a.chosen_tile} with the kernels "
+                f"on and {b.chosen_tile} off ({s_on} vs {s_off})")
+        ties += 1
+    return ties
+
+
+def tile_autotune(trained, norm, programs) -> None:
+    """`autotune_program_tiles` over the held-out programs' default-fused
+    kernels: learned top-1 / top-10 through both trained layouts (kernels
+    on, then off for the picks), analytical top-1 (the compiler default)
+    and top-10, exhaustive."""
+    from repro_torch.autotuner import autotune_program_tiles
+    from repro_torch.core.analytical import AnalyticalModel
+    from repro_torch.core.evaluate import analytical_tile_scorer
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.fusion import apply_fusion, default_fusion
+    from repro_torch.search import LearnedEstimator
+    sim = TPUSimulator()
+    progs = [ks for ks in ([k for k in apply_fusion(p, default_fusion(p))
+                            if k.num_nodes <= TILE_MAX_NODES]
+                           for p in programs) if ks]
+
+    def run(**kw):
+        return [autotune_program_tiles(ks, sim, max_configs=TILE_MAX_CONFIGS,
+                                       **kw) for ks in progs]
+
+    def total(rs):
+        return sum(r.total_runtime for r in rs)
+
+    analytical = analytical_tile_scorer(AnalyticalModel())
+    default = total(run(scorer=analytical, top_k=1))
+    rows = {"exhaustive": run(),
+            "analytical top-10": run(scorer=analytical, top_k=10)}
+    for layout in ("sparse", "dense"):
+        for top_k in (1, 10):
+            on = _trained_service(trained[layout], norm, layout, True)
+            off = _trained_service(trained[layout], norm, layout, False)
+            res = run(estimator=LearnedEstimator(on), top_k=top_k)
+            ref = run(estimator=LearnedEstimator(off), top_k=top_k)
+            label = f"learned top-{top_k} {layout}"
+            q, secs = on.stats().graphs, on.scoring_s
+            tol = _tol(on.predict_many([k for ks in progs for k in ks]))
+            ties = sum(_picks_agree(label, ks, a, b, on, tol)
+                       for ks, a, b in zip(progs, res, ref))
+            log(f"[autotune] tiles, {label}: scoring {secs:.3f} s for {q} "
+                f"queries ({q / secs:.1f} queries/s), picks equal to the "
+                f"kernels off but {ties} tied within tol {tol:.3e}")
+            rows[label] = res
+    ex = total(rows["exhaustive"])
+    for label, rs in rows.items():
+        t = total(rs)
+        log(f"[autotune] tiles, {label}: total runtime {t:.6e} s, speedup "
+            f"over the analytical top-1 default {default / t:.4f}, "
+            f"hardware evals {sum(r.hardware_evals for r in rs)} "
+            f"({len(progs)} programs, "
+            f"{sum(len(ks) for ks in progs)} kernels)")
+        if not ex <= t:
+            raise AssertionError(f"tiles: exhaustive {ex} > {label} {t}")
+
+
+def fusion_autotune(trained, norm) -> None:
+    """`simulated_annealing_fusion` on examples/fusion_search.py's three
+    programs, scored by `model_cost_fn` of the trained segmented fusion
+    model through `segment_aggregate`; every decision it scored is
+    re-scored with the kernels off."""
+    import dataclasses
+    from repro_torch.autotuner import model_cost_fn, \
+        simulated_annealing_fusion
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.synthetic import generate_program
+    tr = trained["segmented"]
+    cfg_on = dataclasses.replace(tr.model_cfg, use_pallas_aggregate=True)
+    cfg_off = dataclasses.replace(tr.model_cfg, use_pallas_aggregate=False)
+    cap = int(FUSION_BUDGET_S / FUSION_EVAL_S)
+    for fam, idx in FUSION_PROGRAMS:
+        prog = generate_program(fam, idx, seed=0)
+        on = model_cost_fn(tr.model, cfg_on, norm)
+        off = model_cost_fn(tr.model, cfg_off, norm)
+        scored = []
+
+        def cost(kernels):
+            ks = list(kernels)
+            c = on(ks)
+            scored.append((ks, c))
+            return c
+        t0 = time.perf_counter()
+        r = simulated_annealing_fusion(
+            prog, TPUSimulator(), model_cost=cost,
+            hardware_budget_s=FUSION_BUDGET_S, model_steps=FUSION_MODEL_STEPS,
+            eval_seconds=FUSION_EVAL_S, seed=0)
+        wall = time.perf_counter() - t0
+        worst = max(abs(off(ks) - c) / max(1.0, abs(c)) for ks, c in scored)
+        log(f"[autotune] fusion {prog.name}: speedup {r.speedup:.4f} "
+            f"(default {r.default_runtime:.6e} s -> {r.best_runtime:.6e} "
+            f"s), hardware evals {r.hardware_evals} (cap {cap}), model "
+            f"evals {r.model_evals} in {wall:.3f} s "
+            f"({len(scored) / wall:.1f} decisions/s); {len(scored)} scored "
+            f"decisions re-scored with the kernels off: largest "
+            f"|Δcost| / max(1, cost) {worst:.3e} (limit 1e-4)")
+        if not r.speedup >= 1.0:
+            raise AssertionError(f"fusion {prog.name}: speedup {r.speedup}")
+        if not r.hardware_evals <= cap:
+            raise AssertionError(f"fusion {prog.name}: {r.hardware_evals} "
+                                 f"hardware evals > {cap}")
+        if not worst <= 1e-4:
+            raise AssertionError(f"fusion {prog.name}: kernels on vs off "
+                                 f"{worst} > 1e-4")
+
+
+def _socket_replay(server, requests, clients: int):
+    """`clients` threads, each replaying `requests` through its own
+    `CostModelClient`. Returns ({client: its answers}, per-request
+    latencies in ms, wall seconds, errors)."""
+    import threading
+    from repro_torch.serving.client import CostModelClient
+    host, port = server.address
+    answers, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(i):
+        mine, times = [], []
+        try:
+            with CostModelClient(host, port, retries=0) as c:
+                for req in requests:
+                    t0 = time.perf_counter()
+                    mine.append(c.predict_many(req, deadline_ms=60_000))
+                    times.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:                      # noqa: BLE001
+            errors.append(repr(e))
+        with lock:
+            answers[i] = mine
+            lat.extend(times)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("socket: a client thread hung")
+    return answers, lat, wall, errors
+
+
+def socket_serve(label, make_service, requests, clients: int) -> None:
+    """A `CostModelServer` on 127.0.0.1:0 over `make_service()`, `clients`
+    client threads replaying `requests`; every answer against an
+    in-process service of the same model."""
+    import numpy as np
+    from repro_torch.serving.server import CostModelServer
+    ref = make_service()
+    want = np.concatenate([ref.predict_many(r) for r in requests])
+    with CostModelServer(make_service(), max_queue=256) as server:
+        answers, lat, wall, errors = _socket_replay(server, requests,
+                                                    clients)
+        st = server.stats
+    if errors:
+        raise AssertionError(f"socket {label}: {errors[:3]}")
+    n = clients * sum(len(r) for r in requests)
+    worst = max(float(np.max(np.abs(np.concatenate(a) - want)))
+                for a in answers.values())
+    tol = _tol(want)
+    log(f"[autotune] socket, {label}: {clients} clients x {len(requests)} "
+        f"requests, {n / wall:.1f} queries/s ({n} queries, {wall:.3f} s), "
+        f"p50 {np.percentile(lat, 50):.3f} ms p99 "
+        f"{np.percentile(lat, 99):.3f} ms per request; server completed "
+        f"{st.completed}, shed {st.shed_overloaded + st.shed_deadline}, "
+        f"worker failures {st.worker_failures}; max|socket - in-process| "
+        f"{worst:.3e} (tol {tol:.3e})")
+    if st.worker_failures or st.shed_overloaded or st.shed_deadline \
+            or st.completed != clients * len(requests):
+        raise AssertionError(f"socket {label}: stats {st.to_dict()}")
+    if not worst <= tol:
+        raise AssertionError(f"socket {label}: {worst} > {tol}")
+
+
+def socket_faults_and_snapshot(make_service, requests, snap: str) -> None:
+    """A planted `drop` comes back as the client's clean error (and the
+    next call is answered); a snapshot written at stop warms a restarted
+    server whose replay then hits the cache 100 %."""
+    from repro_torch.serving.client import ClientError, CostModelClient
+    from repro_torch.serving.server import CostModelServer
+    with CostModelServer(make_service(), allow_request_faults=True) as srv:
+        with CostModelClient(*srv.address, retries=1, timeout_s=30) as c:
+            try:
+                c.inject_fault(requests[0], "drop")
+            except ClientError as e:
+                caught = type(e).__name__
+            else:
+                raise AssertionError("socket: a planted drop was answered")
+            after = c.predict_many(requests[0], deadline_ms=60_000)
+    log(f"[autotune] socket, planted drop: {caught} at the client, the "
+        f"next request answered ({len(after)} scores)")
+    with CostModelServer(make_service(), snapshot_path=snap) as srv:
+        with CostModelClient(*srv.address) as c:
+            for req in requests:
+                c.predict_many(req, deadline_ms=60_000)
+    warm = make_service()
+    with CostModelServer(warm, snapshot_path=snap) as srv:
+        restored = srv.stats.restored_entries
+        with CostModelClient(*srv.address) as c:
+            for req in requests:
+                c.predict_many(req, deadline_ms=60_000)
+    st = warm.stats()
+    log(f"[autotune] socket, snapshot -> restart -> replay: {restored} "
+        f"entries restored, hits {st.cache.hits} misses {st.cache.misses} "
+        f"(hit rate {st.hit_rate:.4f}), flushes {st.flushes}")
+    if st.cache.misses or st.flushes or st.hit_rate != 1.0:
+        raise AssertionError(f"socket: the warm replay missed: {st}")
+
+
+def phase_autotune(card: str, trained: dict, replay, tmpdir: str) -> dict:
+    """Phase 12: the trained model's consumers on the card. Returns the
+    launch counts of the phase."""
+    import dataclasses
+    from repro_torch.core.analytical import AnalyticalModel
+    from repro_torch.core.evaluate import analytical_tile_scorer, \
+        eval_tile_task, make_predict_fn
+    from repro_torch.data.tile_dataset import TileDataset
+    from repro_torch.quant import QuantizedCostModel, quantize_params
+    from repro_torch.serving import CostModelService
+    log(f"[autotune] on {card}")
+    t0 = time.perf_counter()
+    data = trained["data"]
+    norm = data["tile_norm"]
+    _reset_launches()
+    for layout in ("sparse", "dense"):
+        table2(f"learned {layout} (trained, kernels on)",
+               _trained_service(trained[layout], norm, layout, True),
+               _trained_service(trained[layout], norm, layout, False),
+               data["tile_test"])
+    res = eval_tile_task(TileDataset(list(data["tile_test"])),
+                         analytical_tile_scorer(AnalyticalModel()))
+    log(f"[autotune] table 2 tile task, analytical: median APE "
+        f"{res['median_ape']:.4f} mean APE {res['mean_ape']:.4f} median tau "
+        f"{res['median_kendall']:.4f} mean tau {res['mean_kendall']:.4f}")
+    tile_autotune(trained, norm, data["test_programs"])
+    fusion_autotune(trained, data["whole_norm"])
+
+    def sparse_service():
+        return _trained_service(trained["sparse"], norm, "sparse", True)
+    socket_serve("trained sparse f32", sparse_service, replay.requests,
+                 SOCKET_CLIENTS)
+    socket_faults_and_snapshot(sparse_service, replay.requests,
+                               os.path.join(tmpdir, "warm.npz"))
+    sparse = trained["sparse"]
+    qm = quantize_params(
+        sparse.model, dataclasses.replace(sparse.model_cfg,
+                                          use_pallas_aggregate=True),
+        calib_graphs=[g for req in replay.requests[:4] for g in req],
+        normalizer=norm)
+
+    def int8_service():
+        q = QuantizedCostModel(qm.params, qm.act_scales, qm.config)
+        return CostModelService(q, None, norm, predict_fn=make_predict_fn(
+            q.serving_config()))
+    socket_serve("trained sparse int8", int8_service, replay.requests, 1)
+    launches = _launches()
+    log(f"[autotune] aggregation kernel launches in the phase: "
+        f"{ {k: launches[k] for k in AGG_KERNELS} }")
+    for k in AGG_KERNELS:
+        if not launches[k]:
+            raise AssertionError(f"autotune: {k} never launched")
+    log(f"[autotune] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -------------------------------------------------------------------- 13
+# The profiler's post-processing of one pass of 17k-136k launches took
+# 14-53 s on an H100 80GB HBM3 at 700 W, three quarters of this phase:
+# its serving passes go unprofiled and its training window is 5 steps.
+GAT_LSTM_TRAIN_STEPS, GAT_LSTM_TIMED, GAT_LSTM_PROFILED = 50, 20, 5
+
+
+def _seed0():
+    import torch
+    return torch.Generator().manual_seed(0)
+
+
+def _cpu_agree(label, cfg, graphs, norm) -> None:
+    """The seed-0 weights of `cfg` on the card and on the CPU score
+    `graphs` alike (within the serving limit)."""
+    import numpy as np
+    from repro_torch.core.evaluate import predict_kernels
+    from repro_torch.core.model import cost_model_init
+    preds = {dev: predict_kernels(cost_model_init(_seed0(), cfg, device=dev),
+                                  cfg, graphs, norm)
+             for dev in (DEVICE, "cpu")}
+    err, tol = float(np.max(np.abs(preds[DEVICE] - preds["cpu"]))), \
+        _tol(preds["cpu"])
+    log(f"[gat-lstm] {label}, card vs CPU of the same weights over "
+        f"{len(graphs)} graphs: max_abs_err={err:.3e} (tol {tol:.3e})")
+    if not np.all(np.isfinite(preds[DEVICE])) or not err <= tol:
+        raise AssertionError(f"{label}: card vs CPU {err} > {tol}")
+
+
+def segmented_lstm(replay, whole) -> None:
+    """One segmented graphsage + lstm pass over one 10k-node program: the
+    LSTM takes one step per slot of the program's gather width."""
+    import numpy as np
+    import torch
+    from repro_torch.core.evaluate import predict_kernels
+    from repro_torch.core.model import CostModelConfig, cost_model_init
+    preds, secs = {}, {}
+    for kernels in (True, False):
+        cfg = CostModelConfig(adjacency="segmented", reduction="lstm",
+                              dropout=0.0, use_pallas_aggregate=kernels)
+        model = cost_model_init(_seed0(), cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds[kernels] = predict_kernels(model, cfg, whole[:1],
+                                         replay.normalizer,
+                                         node_budget=SEGMENT_BUDGET)
+        secs[kernels] = time.perf_counter() - t0
+    err, tol = float(np.max(np.abs(preds[True] - preds[False]))), \
+        _tol(preds[False])
+    log(f"[gat-lstm] segmented graphsage+lstm, one program of "
+        f"{whole[0].num_nodes} nodes: {secs[True]:.3f} s per pass with the "
+        f"kernels, {secs[False]:.3f} s without (host clock, first call of "
+        f"the shape), prediction {float(preds[True][0]):.6f}, kernels on "
+        f"vs off max_abs_err={err:.3e} (tol {tol:.3e})")
+    if not np.all(np.isfinite(preds[True])) or not err <= tol:
+        raise AssertionError(f"segmented lstm: {err} > {tol}")
+
+
+def phase_gat_lstm(card: str, trained: dict, replay, whole) -> dict:
+    """Phase 13: GAT and the LSTM reduction served over the replay at the
+    default width (seed-0 weights), then trained briefly on the card.
+    Returns the aggregation kernels' launches of its timed passes."""
+    from repro_torch.core.model import CostModelConfig
+    log(f"[gat-lstm] on {card}")
+    t0 = time.perf_counter()
+    data = trained["data"]
+    unique = list({g.canonical_hash(): g for req in replay.requests
+                   for g in req}.values())
+    total = dict.fromkeys(AGG_KERNELS, 0)
+    for name, kw, kernels in (("gat", dict(gnn="gat"), {}),
+                              ("graphsage+lstm", dict(reduction="lstm"),
+                               {"dense": "graph_aggregate",
+                                "sparse": "segment_aggregate"})):
+        served = {}
+        for layout in ("dense", "sparse"):
+            make = f32_services(replay, layout, **kw)
+            if not kernels:         # GAT runs outside any kernel
+                make = (lambda m: lambda _: m(False))(make)
+            served[layout] = serve(
+                f"{name} {layout}", make, replay.requests,
+                [kernels[layout]] if kernels else [], tag="gat-lstm",
+                profiled=False)
+            for k in total:
+                total[k] += served[layout]["launches"][k]
+            _cpu_agree(f"{name} {layout}", CostModelConfig(
+                adjacency=layout, dropout=0.0,
+                use_pallas_aggregate=bool(kernels), **kw), unique,
+                replay.normalizer)
+        _agree(f"{name}, sparse vs dense layout", served["sparse"]["preds"],
+               served["dense"]["preds"], tag="gat-lstm")
+        log(f"[gat-lstm] {name} served, {time.perf_counter() - t0:.1f} s "
+            f"into the phase")
+    _reset_launches()
+    segmented_lstm(replay, whole)
+    for k in total:
+        total[k] += _launches()[k]
+    log(f"[gat-lstm] aggregation kernel launches of the timed passes and "
+        f"the segmented pass: {total}")
+    for k in ("graph_aggregate", "segment_aggregate"):
+        if not total[k]:
+            raise AssertionError(f"gat-lstm: {k} never launched")
+    held = _tile_sampler(data["tile_test"], data["tile_norm"],
+                         "dense").batch(0)
+    for name, kw in (("gat", dict(gnn="gat")),
+                     ("lstm", dict(reduction="lstm"))):
+        tr = _trainer(CostModelConfig(adjacency="dense", **kw),
+                      _tile_sampler(data["tile_train"], data["tile_norm"],
+                                    "dense"), "tile")
+        train_run(f"{name} tile dense, {GAT_LSTM_TRAIN_STEPS} steps", tr,
+                  GAT_LSTM_TRAIN_STEPS, held, timed=GAT_LSTM_TIMED,
+                  profiled=GAT_LSTM_PROFILED, tag="gat-lstm")
+    log(f"[gat-lstm] phase took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1573,8 +2100,8 @@ def main() -> int:
         f"{q_seg['preds'][n_small:].tolist()}")
 
     # 7: train on the card, then serve the trained checkpoint
-    with tempfile.TemporaryDirectory() as ckpt_root:
-        phase_train(card, ckpt_root)
+    tmp = tempfile.TemporaryDirectory()
+    trained = phase_train(card, tmp.name)
 
     # 8-10: the LM zoo
     flash = check_flash_attention()
@@ -1594,12 +2121,17 @@ def main() -> int:
         "flash_attention_f32"]
     rows["ssd_scan"]["launches"] = launches["ssd_scan"]   # on no path: 0
 
-    rows["graph_aggregate"].update(launches=dense["launches"][
-        "graph_aggregate"])
-    rows["segment_aggregate"].update(launches=sparse["launches"][
-        "segment_aggregate"])
-    rows["segment_aggregate_i8"].update(launches=q_sparse["launches"][
-        "segment_aggregate_i8"])
+    # 12-13: the model's consumers, then GAT and the LSTM reduction
+    with tmp:
+        autotune = phase_autotune(card, trained, replay, tmp.name)
+    gat_lstm = phase_gat_lstm(card, trained, replay, whole)
+
+    # each path's own count: the serving runs of 4-5, then 12 and 13
+    for name, main_run in (("graph_aggregate", dense),
+                           ("segment_aggregate", sparse),
+                           ("segment_aggregate_i8", q_sparse)):
+        rows[name]["launches"] = (main_run["launches"][name]
+                                  + autotune[name] + gat_lstm[name])
     kernels = []
     for name, source, replaces in (
             ("graph_aggregate", "graph_aggregate",

@@ -1,8 +1,11 @@
-"""GraphSAGE over batched kernel graphs (paper §3.2).
+"""GraphSAGE and GAT over batched kernel graphs (paper §3.2).
 
-Counterpart of `repro.core.gnn`, GraphSAGE only (GAT is not ported yet).
-Direction-aware: incoming and outgoing edges aggregate through separate
-feedforward modules ('Undirected' ablation shares them).
+Counterpart of `repro.core.gnn`. Direction-aware: incoming and outgoing
+edges aggregate through separate feedforward modules ('Undirected'
+ablation shares them). GAT runs on plain PyTorch ops in every layout, as
+the reference runs it outside any Pallas kernel; its sparse segment
+sums are `index_add_`, atomics on the card, so sparse GAT is not
+bit-reproducible there.
 
 Two aggregation backends share one parameter tree:
 
@@ -23,6 +26,7 @@ the kernel's int8 variant.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 from repro_torch.kernels.graph_aggregate import graph_aggregate
 from repro_torch.kernels.segment_aggregate import (
@@ -275,4 +279,157 @@ def sage_apply_sparse(params: dict, eps: torch.Tensor,
         return sage_layer_apply_sparse(layer, h, src, dst, edge_mask,
                                        node_mask, aggregator=aggregator,
                                        directed=directed)
+    return _apply_stack(params, eps, layer_fn)
+
+
+# ----------------------------------------------------------------------------
+# GAT
+# ----------------------------------------------------------------------------
+def gat_layer_init(gen: torch.Generator, dim: int, num_heads: int, *,
+                   directed: bool, dtype=torch.float32) -> dict:
+    assert dim % num_heads == 0
+    hd = dim // num_heads
+
+    def attn():
+        return torch.randn((num_heads, hd), generator=gen, dtype=dtype) * 0.1
+    params = {
+        "w_in": dense_init(gen, dim, dim, bias=False, dtype=dtype),
+        "a_src_in": attn(),
+        "a_dst_in": attn(),
+        "proj": dense_init(gen, dim * (2 if directed else 1), dim,
+                           bias=False, dtype=dtype),
+    }
+    if directed:
+        params["w_out"] = dense_init(gen, dim, dim, bias=False, dtype=dtype)
+        params["a_src_out"] = attn()
+        # an independent copy, as in the reference: one tensor under two
+        # names would be one parameter, moved by one update for both
+        params["a_dst_out"] = params["a_dst_in"].clone()
+    return params
+
+
+def _gat_attend(h: torch.Tensor, adj: torch.Tensor, a_src: torch.Tensor,
+                a_dst: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Masked multi-head attention aggregation over in-edges of `adj`."""
+    B, N, D = h.shape
+    hd = D // num_heads
+    hh = h.reshape(B, N, num_heads, hd)
+    e_src = torch.einsum("bnhd,hd->bnh", hh, a_src)  # src's score share
+    e_dst = torch.einsum("bnhd,hd->bnh", hh, a_dst)
+    # logits[b, h, d, s] = leaky_relu(e_dst[d] + e_src[s])
+    logits = TF.leaky_relu(
+        e_dst.transpose(1, 2)[:, :, :, None] +
+        e_src.transpose(1, 2)[:, :, None, :], 0.2)
+    neg = torch.finfo(logits.dtype).min
+    mask = adj[:, None, :, :] > 0
+    logits = torch.where(mask, logits, neg)
+    alpha = torch.softmax(logits, dim=-1)
+    # rows with no in-edges: their uniform softmax is zeroed afterwards
+    alpha = torch.where(mask.any(dim=-1, keepdim=True), alpha, 0.0)
+    out = torch.einsum("bhds,bshx->bdhx", alpha, hh)
+    return out.reshape(B, N, D)
+
+
+def gat_layer_apply(params: dict, eps: torch.Tensor, adj: torch.Tensor,
+                    node_mask: torch.Tensor, *, num_heads: int,
+                    directed: bool = True) -> torch.Tensor:
+    h_in = dense_apply(params["w_in"], eps)
+    agg_in = _gat_attend(h_in, adj, params["a_src_in"], params["a_dst_in"],
+                         num_heads)
+    if directed:
+        h_out = dense_apply(params["w_out"], eps)
+        agg_out = _gat_attend(h_out, adj.transpose(-1, -2),
+                              params["a_src_out"], params["a_dst_out"],
+                              num_heads)
+        agg = torch.cat([agg_in, agg_out], dim=-1)
+    else:
+        sym = torch.maximum(adj, adj.transpose(-1, -2))
+        agg = _gat_attend(h_in, sym, params["a_src_in"], params["a_dst_in"],
+                          num_heads)
+    h = dense_apply(params["proj"], agg)
+    h = TF.elu(h) + eps          # residual keeps training stable
+    return h * node_mask[..., None]
+
+
+def gat_init(gen: torch.Generator, dim: int, num_layers: int,
+             num_heads: int, *, directed: bool = True,
+             dtype=torch.float32) -> dict:
+    return {"layers": [gat_layer_init(gen, dim, num_heads,
+                                      directed=directed, dtype=dtype)
+                       for _ in range(num_layers)]}
+
+
+def gat_apply(params: dict, eps: torch.Tensor, adj: torch.Tensor,
+              node_mask: torch.Tensor, *, num_heads: int,
+              directed: bool = True) -> torch.Tensor:
+    def layer_fn(layer, h):
+        return gat_layer_apply(layer, h, adj, node_mask, num_heads=num_heads,
+                               directed=directed)
+    return _apply_stack(params, eps, layer_fn)
+
+
+def _gat_attend_sparse(h: torch.Tensor, edge_src: torch.Tensor,
+                       edge_dst: torch.Tensor, edge_mask: torch.Tensor,
+                       a_src: torch.Tensor, a_dst: torch.Tensor,
+                       num_heads: int) -> torch.Tensor:
+    """Segment-softmax attention over in-edges: sparse twin of
+    `_gat_attend`. h: [M, D]; edges (int64) index the node buffer. The
+    softmax per (dst, head) segment is max-shifted; destinations with no
+    in-edges get a zero output, as on the dense path."""
+    M, D = h.shape
+    hd = D // num_heads
+    hh = h.reshape(M, num_heads, hd)
+    e_src = torch.einsum("mhd,hd->mh", hh, a_src)
+    e_dst = torch.einsum("mhd,hd->mh", hh, a_dst)
+    logits = TF.leaky_relu(e_dst[edge_dst] + e_src[edge_src], 0.2)
+    neg = torch.finfo(logits.dtype).min
+    z = torch.where(edge_mask[:, None] > 0, logits, neg)
+    # segment max: empty segments keep the fill, as the reference's
+    # maximum(segment_max, neg) leaves them
+    zmax = torch.full((M, num_heads), neg, dtype=z.dtype, device=z.device)
+    zmax = zmax.scatter_reduce(0, edge_dst[:, None].expand(-1, num_heads),
+                               z, reduce="amax", include_self=False)
+    zmax = torch.clamp(zmax, min=neg)
+    num = torch.exp(z - zmax[edge_dst]) * edge_mask[:, None]       # [E, H]
+    den = torch.zeros_like(zmax).index_add(0, edge_dst, num)       # [M, H]
+    alpha = num / torch.clamp(den[edge_dst], min=1e-30)
+    out = hh.new_zeros((M, num_heads, hd)).index_add(
+        0, edge_dst, alpha[:, :, None] * hh[edge_src])             # [M,H,hd]
+    return out.reshape(M, D)
+
+
+def gat_layer_apply_sparse(params: dict, eps: torch.Tensor,
+                           edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                           edge_mask: torch.Tensor, node_mask: torch.Tensor,
+                           *, num_heads: int,
+                           directed: bool = True) -> torch.Tensor:
+    if not directed:
+        # as the reference: the symmetrized edge set is not deduplicated
+        # on the sparse layout; the ablation stays on the dense path
+        raise NotImplementedError(
+            "undirected GAT is dense-only; use adjacency='dense'")
+    h_in = dense_apply(params["w_in"], eps)
+    agg_in = _gat_attend_sparse(h_in, edge_src, edge_dst, edge_mask,
+                                params["a_src_in"], params["a_dst_in"],
+                                num_heads)
+    h_out = dense_apply(params["w_out"], eps)
+    agg_out = _gat_attend_sparse(h_out, edge_dst, edge_src, edge_mask,
+                                 params["a_src_out"], params["a_dst_out"],
+                                 num_heads)
+    agg = torch.cat([agg_in, agg_out], dim=-1)
+    h = dense_apply(params["proj"], agg)
+    h = TF.elu(h) + eps
+    return h * node_mask[:, None]
+
+
+def gat_apply_sparse(params: dict, eps: torch.Tensor, edge_src: torch.Tensor,
+                     edge_dst: torch.Tensor, edge_mask: torch.Tensor,
+                     node_mask: torch.Tensor, *, num_heads: int,
+                     directed: bool = True) -> torch.Tensor:
+    src, dst = edge_src.long(), edge_dst.long()
+
+    def layer_fn(layer, h):
+        return gat_layer_apply_sparse(layer, h, src, dst, edge_mask,
+                                      node_mask, num_heads=num_heads,
+                                      directed=directed)
     return _apply_stack(params, eps, layer_fn)

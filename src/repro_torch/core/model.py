@@ -2,9 +2,9 @@
 
 Counterpart of `repro.core.model`. Pipeline:
   opcode embedding ⊕ node scalar features [⊕ kernel features (option 1)]
-    → f1 → GraphSAGE
+    → f1 → GraphSAGE | GAT
     → node-final MLP (3 layers, Table 5)
-    → reduction (per-node | column-wise | Transformer)
+    → reduction (per-node | column-wise | LSTM | Transformer)
       [⊕ kernel features (option 2)]
     → linear head (no activation) → scalar prediction per kernel.
 
@@ -25,8 +25,7 @@ before the readout). Under ``precision="int8"`` the tree holds
 as buffers, keys `….w.q` / `….w.scale`); they are dequantized per
 forward, except that the GNN's f2 weights stay int8 into the
 `segment_aggregate` kernel on the sparse and segmented layouts with the
-kernels on. Not ported yet (raise `NotImplementedError`): GAT and the
-LSTM reduction.
+kernels on.
 """
 from __future__ import annotations
 
@@ -102,10 +101,6 @@ class CostModelConfig:
         return CostModelConfig(**d)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
-
-
 # ----------------------------------------------------------------------------
 # Parameters: nested dict tree <-> nn.Module
 # ----------------------------------------------------------------------------
@@ -168,10 +163,6 @@ def cost_model_init(gen: torch.Generator, cfg: CostModelConfig, *,
     """Random parameters drawn from `gen` (a CPU generator), placed on
     `device`. Raises if `device` is a CUDA device and none is present."""
     dev = resolve_device(device)
-    if cfg.gnn == "gat":
-        raise _not_ported("gnn='gat'")
-    if cfg.gnn not in ("graphsage", "none"):
-        raise ValueError(f"unknown gnn {cfg.gnn!r}")
     d = cfg.hidden_dim
     in_dim = cfg.opcode_embed_dim + F.NODE_FEATURE_DIM
     if cfg.kernel_feat_mode == "node":
@@ -189,8 +180,14 @@ def cost_model_init(gen: torch.Generator, cfg: CostModelConfig, *,
     if cfg.gnn == "graphsage":
         params["gnn"] = G.sage_init(gen, d, cfg.gnn_layers,
                                     directed=cfg.directed, dtype=dtype)
-        if cfg.scan_layers and params["gnn"]["layers"]:
-            params["gnn"] = G.stack_params(params["gnn"])
+    elif cfg.gnn == "gat":
+        params["gnn"] = G.gat_init(gen, d, max(cfg.gnn_layers, 1),
+                                   cfg.gat_heads, directed=cfg.directed,
+                                   dtype=dtype)
+    elif cfg.gnn != "none":
+        raise ValueError(f"unknown gnn {cfg.gnn!r}")
+    if cfg.scan_layers and "gnn" in params and params["gnn"]["layers"]:
+        params["gnn"] = G.stack_params(params["gnn"])
     if cfg.reduction == "per_node":
         params["node_head"] = dense_init(gen, d, 1, bias=False, dtype=dtype)
         if cfg.kernel_feat_mode == "kernel":
@@ -232,11 +229,6 @@ def _mask_kernel_feats(cfg: CostModelConfig,
     return kfeats
 
 
-def _check_supported(cfg: CostModelConfig) -> None:
-    if cfg.gnn == "gat":
-        raise _not_ported("gnn='gat'")
-
-
 # ----------------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------------
@@ -249,7 +241,6 @@ def cost_model_apply(params: dict, cfg: CostModelConfig, batch, *,
     batch's device) dropout at rate `cfg.dropout` follows the GNN and the
     Transformer's attention, at the reference's two sites; otherwise the
     forward is deterministic."""
-    _check_supported(cfg)
     if cfg.precision == "int8":
         # sparse/segmented + kernels: the GNN tree stays quantized, its f2
         # weights feed the segment_aggregate kernel as int8; everything
@@ -285,6 +276,9 @@ def cost_model_apply(params: dict, cfg: CostModelConfig, batch, *,
         eps = G.sage_apply(params["gnn"], eps, adj, mask,
                            aggregator=cfg.aggregator, directed=cfg.directed,
                            use_kernel=cfg.use_pallas_aggregate)
+    elif cfg.gnn == "gat":
+        eps = G.gat_apply(params["gnn"], eps, adj, mask,
+                          num_heads=cfg.gat_heads, directed=cfg.directed)
 
     eps = dropout(eps, cfg.dropout, **drop)
     eps = mlp_apply(params["node_final"], eps, final_act=True)
@@ -323,6 +317,11 @@ def _embed_sparse(params: dict, cfg: CostModelConfig,
                                   aggregator=cfg.aggregator,
                                   directed=cfg.directed,
                                   use_kernel=cfg.use_pallas_aggregate)
+    elif cfg.gnn == "gat":
+        eps = G.gat_apply_sparse(params["gnn"], eps, batch.edge_src,
+                                 batch.edge_dst, batch.edge_mask, mask,
+                                 num_heads=cfg.gat_heads,
+                                 directed=cfg.directed)
     return eps
 
 

@@ -3,19 +3,15 @@
 Counterpart of `repro.core.reductions`, all mask-aware:
   * per-node:     scalar head per node, summed (handled in `core.model`)
   * column-wise:  concat(masked mean, masked max) — Table 5's fixed choice
+  * LSTM:         final state over topologically sorted node embeddings
   * Transformer:  encoder over node embeddings, sum-reduced (Table 5)
-The LSTM reduction is not ported yet and raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.nn.lstm import lstm_apply, lstm_init
 from repro_torch.nn.transformer import encoder_apply, encoder_init
-
-
-def _no_lstm():
-    return NotImplementedError(
-        "the LSTM reduction is not ported yet (repro.nn.lstm)")
 
 
 def reduction_init(gen: torch.Generator, kind: str, dim: int, *,
@@ -24,7 +20,7 @@ def reduction_init(gen: torch.Generator, kind: str, dim: int, *,
     if kind in ("per_node", "column_wise"):
         return {}
     if kind == "lstm":
-        raise _no_lstm()
+        return {"lstm": lstm_init(gen, dim, dim, dtype)}
     if kind == "transformer":
         return {"encoder": encoder_init(gen, dim, transformer_heads,
                                         transformer_layers, dtype=dtype)}
@@ -62,7 +58,7 @@ def reduction_apply(params: dict, kind: str, eps: torch.Tensor,
         return torch.cat([masked_mean(eps, node_mask),
                           masked_max(eps, node_mask)], dim=-1)
     if kind == "lstm":
-        raise _no_lstm()
+        return lstm_apply(params["lstm"], eps, node_mask)
     if kind == "transformer":
         enc = encoder_apply(params["encoder"], eps, node_mask,
                             transformer_heads, dropout_rate=dropout_rate,

@@ -12,6 +12,22 @@ same stream and reports the speedup and the max prediction delta.
   PYTHONPATH=src python -m repro_torch.launch.serve_costmodel \\
       --programs 8 --rounds 4 --compare-direct
 
+Two more modes put the same service behind a socket
+(`repro_torch.serving.server`, the reference's wire protocol, so either
+package's client talks to either package's server):
+
+  # serve: build the model on the card once, answer predict requests
+  # until SIGINT
+  PYTHONPATH=src python -m repro_torch.launch.serve_costmodel \\
+      --listen 127.0.0.1:7450 --snapshot warm.npz
+
+  # connect: replay the query stream against a running server
+  PYTHONPATH=src python -m repro_torch.launch.serve_costmodel \\
+      --connect 127.0.0.1:7450
+
+`--connect` needs no card and never imports torch: the graphs travel as
+JSON and scoring happens server-side.
+
 Flags (as in the reference, plus --device):
   --programs N        synthetic programs in the corpus        (default 8)
   --max-configs N     tile candidates per kernel              (default 16)
@@ -28,26 +44,36 @@ Flags (as in the reference, plus --device):
                       stream's first 4 requests)
   --seed N            corpus/model seed                       (default 0)
   --compare-direct    also time uncached per-request scoring
-  --device D          cuda | cpu                              (default cuda)
+  --device D          cuda | cpu (local replay and --listen)  (default cuda)
+  --listen H:P        serve over a socket instead of replaying locally
+  --connect H:P       replay against a running --listen server
+  --max-queue N       --listen: admission queue bound         (default 64)
+  --deadline-ms F     --listen: default per-request deadline  (default none)
+  --snapshot PATH     --listen: warm-cache npz (restored at start,
+                      written at shutdown)
 
 The GraphSAGE aggregation runs through the hand-written CUDA kernels
 (their plain PyTorch versions on cpu); with --precision int8 the sparse
 hop takes the kernel's int8-weight variant.
-
-Not ported yet, and refused with an error: --listen, --connect (and
-their --max-queue, --deadline-ms, --snapshot).
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import threading
 import time
 
-import numpy as np
-import torch
+
+def _host_port(spec: str) -> tuple[str, int]:
+    host, _, port = spec.rpartition(":")
+    if not host or not port.isdigit():
+        raise argparse.ArgumentTypeError(
+            f"expected HOST:PORT, got {spec!r}")
+    return host, int(port)
 
 
-def _sync(device: torch.device) -> None:
+def _sync(device) -> None:
+    import torch
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -64,6 +90,59 @@ def _maybe_quantize(model, cfg, replay, args):
                          normalizer=replay.normalizer)
     cfg = qm.serving_config()
     return qm.model(cfg), cfg
+
+
+def _serve(args, service) -> int:
+    """--listen: put `service` behind a socket server until SIGINT."""
+    from repro_torch.serving.server import CostModelServer
+
+    host, port = args.listen
+    server = CostModelServer(service, host=host, port=port,
+                             max_queue=args.max_queue,
+                             default_deadline_ms=args.deadline_ms,
+                             snapshot_path=args.snapshot)
+    server.start()
+    bound = server.address
+    print(f"serving cost model on {bound[0]}:{bound[1]} "
+          f"(max_queue={args.max_queue}, "
+          f"restored {server.stats.restored_entries} warm entries); "
+          f"SIGINT stops", flush=True)
+    try:
+        threading.Event().wait()       # serve until interrupted
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+        print(f"stopped; served {server.stats.completed} requests "
+              f"({server.stats.shed_overloaded} shed)", flush=True)
+    return 0
+
+
+def _connect(args) -> int:
+    """--connect: replay the query stream through a running server.
+    Needs no card and no torch: graphs go out as JSON."""
+    from repro_torch.serving.client import CostModelClient
+    from repro_torch.serving.replay import build_tile_replay, run_replay
+
+    replay = build_tile_replay(args.programs, max_configs=args.max_configs,
+                               rounds=args.rounds, subset=args.subset,
+                               seed=args.seed)
+    host, port = args.connect
+    with CostModelClient(host, port) as client:
+        client.ping()
+        _, dt = run_replay(
+            lambda gs: client.predict_many(gs, deadline_ms=args.deadline_ms),
+            replay.requests)
+        stats = client.stats()
+    print(f"replayed {replay.num_queries} queries "
+          f"({len(replay.requests)} requests) in {dt:.2f}s -> "
+          f"{replay.num_queries / dt:.0f} queries/s")
+    svc = stats["service"]
+    print(f"server: hit_rate={svc['hit_rate']:.1%} "
+          f"flushes={svc['flushes']} "
+          f"completed={stats['server']['completed']} "
+          f"shed={stats['server']['shed_overloaded']}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -85,17 +164,18 @@ def main(argv=None) -> int:
     ap.add_argument("--compare-direct", action="store_true")
     ap.add_argument("--device", default="cuda")
     mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--listen", metavar="HOST:PORT")
-    mode.add_argument("--connect", metavar="HOST:PORT")
+    mode.add_argument("--listen", type=_host_port, metavar="HOST:PORT")
+    mode.add_argument("--connect", type=_host_port, metavar="HOST:PORT")
     ap.add_argument("--max-queue", type=int, default=64)
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--snapshot", default=None)
     args = ap.parse_args(argv)
 
-    if args.listen or args.connect:
-        ap.error("--listen/--connect (the socket server and client) are "
-                 "not ported to repro_torch yet; use repro.launch."
-                 "serve_costmodel")
+    if args.connect:
+        return _connect(args)
+
+    import numpy as np
+    import torch
 
     from repro_torch.core.device import resolve_device
     from repro_torch.core.evaluate import make_predict_fn, predict_kernels
@@ -128,6 +208,9 @@ def main(argv=None) -> int:
                                 cache_capacity=args.cache_capacity,
                                 node_budget=args.node_budget,
                                 chunk=args.chunk, predict_fn=predict_fn)
+
+    if args.listen:
+        return _serve(args, make_service())
 
     # warm-up pass on a throwaway service: builds the kernels and brings
     # every bucket shape through once before the timed pass

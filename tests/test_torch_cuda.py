@@ -675,3 +675,70 @@ def test_trained_checkpoint_serves_with_the_kernels(tmp_path):
         tol = 1e-4 * max(1.0, float(np.abs(preds[False]).max()))
         assert np.all(np.isfinite(preds[True]))
         assert float(np.abs(preds[True] - preds[False]).max()) <= tol
+
+
+def _small_graphs():
+    from repro_torch.core import features as F
+    from repro_torch.data.synthetic import random_kernel
+    graphs = [random_kernel(n, seed=i)
+              for i, n in enumerate((5, 12, 20, 3, 17))]
+    return graphs, F.fit_normalizer(graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gnn,reduction,layout,kernels", [
+    ("gat", "column_wise", "sparse", False),
+    ("gat", "lstm", "dense", False),
+    ("graphsage", "lstm", "sparse", True),
+    ("graphsage", "lstm", "dense", True)])
+def test_gat_and_lstm_on_card_match_the_cpu(gnn, reduction, layout,
+                                            kernels):
+    """GAT and the LSTM reduction on the card against the same weights
+    on the CPU, within 1e-4·max|pred| (the smoke's serving limit). Sparse
+    GAT's segment sums are `index_add_` atomics on the card: two runs
+    need not agree bit for bit, so the check is a tolerance, not
+    equality."""
+    _need_card()
+    from repro_torch.core.evaluate import predict_kernels
+    from repro_torch.core.model import CostModelConfig, cost_model_init
+    graphs, norm = _small_graphs()
+    cfg = CostModelConfig(gnn=gnn, reduction=reduction, hidden_dim=64,
+                          opcode_embed_dim=16, max_nodes=24, dropout=0.0,
+                          adjacency=layout, use_pallas_aggregate=kernels)
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        model = cost_model_init(torch.Generator().manual_seed(0), cfg,
+                                device=dev)
+        preds[dev] = predict_kernels(model, cfg, graphs, norm, max_nodes=24)
+    tol = 1e-4 * max(1.0, float(np.abs(preds["cpu"]).max()))
+    assert np.all(np.isfinite(preds["cuda"]))
+    assert float(np.abs(preds["cuda"] - preds["cpu"]).max()) <= tol
+
+
+@pytest.mark.cuda
+def test_socket_server_round_trip_on_the_card():
+    """The socket server scores on the card from its worker thread: the
+    kernel launches there, and the answers are the in-process
+    service's."""
+    _need_card()
+    from repro_torch.core.evaluate import make_predict_fn
+    from repro_torch.core.model import CostModelConfig, cost_model_init
+    from repro_torch.serving import CostModelService
+    from repro_torch.serving.client import CostModelClient
+    from repro_torch.serving.server import CostModelServer
+    graphs, norm = _small_graphs()
+    cfg = CostModelConfig(hidden_dim=64, opcode_embed_dim=16, max_nodes=24,
+                          dropout=0.0, adjacency="sparse",
+                          use_pallas_aggregate=True)
+    model = cost_model_init(torch.Generator().manual_seed(0), cfg)
+    want = CostModelService(model, cfg, norm,
+                            predict_fn=make_predict_fn(cfg)).predict_many(
+                                graphs)
+    before = sa.launches
+    with CostModelServer(CostModelService(
+            model, cfg, norm, predict_fn=make_predict_fn(cfg))) as server:
+        with CostModelClient(*server.address, retries=0) as c:
+            got = c.predict_many(graphs, deadline_ms=60_000)
+        assert server.stats.worker_failures == 0
+    assert sa.launches > before
+    np.testing.assert_array_equal(got, want)

@@ -164,15 +164,6 @@ def test_copied_bucketing_and_packing_agree():
         [g.canonical_hash() for g in pg]
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="gat"):
-        cost_model_init(torch.Generator(), _configs(gnn="gat")[1],
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        cost_model_init(torch.Generator(), _configs(reduction="lstm")[1],
-                        device="cpu")
-
-
 DOCTEST_MODULES = ["repro_torch.core.graph", "repro_torch.core.features",
                    "repro_torch.data.batching", "repro_torch.data.fusion",
                    "repro_torch.serving.cache",

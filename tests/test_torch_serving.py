@@ -165,15 +165,3 @@ def test_serve_cli_replays_on_cpu(capsys):
                  "--compare-direct"]) == 0
     out = capsys.readouterr().out
     assert "queries/s" in out and "max prediction delta" in out
-
-
-@pytest.mark.parametrize("flags", [["--listen", "127.0.0.1:0"],
-                                   ["--connect", "127.0.0.1:1"],
-                                   ["--listen", "127.0.0.1:0",
-                                    "--precision", "int8"]])
-def test_serve_cli_refuses_unported_modes(flags, capsys):
-    from repro_torch.launch.serve_costmodel import main
-    with pytest.raises(SystemExit) as e:
-        main(flags + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
