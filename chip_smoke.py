@@ -119,6 +119,24 @@ Phases, each reported on its own lines; any failure exits non-zero:
              same weights agree; one segmented graphsage + LSTM pass over
              a 10k-node program, timed; 50 dense training steps each of
              GAT and of LSTM (finite losses, the held-out loss falls).
+14. flywheel — benchmarks/bench_flywheel.py's scenario at its own
+             constants, on the port (`paper_tile_model()`: graphsage +
+             LSTM, hidden 64, dropout 0.1, dense): the base store built
+             by `python -m repro_torch.launch.build_corpus --workers 2`
+             (manifest hash equal to an in-process `write_corpus`), the
+             static model trained 120 steps on the card, the hard set
+             of 6 of 20 pool kernels, then `run_flywheel` (3 rounds,
+             MC-dropout acquisition and scoring through graph_aggregate,
+             120 fine-tune steps a round). Gates: regret margin over the
+             static plan > 0, the delta chain byte-identical to a
+             rebuild, warm start within 0.5 of scratch's steps; MC mean
+             and std with the kernels on vs off within 1e-4·max|pred|,
+             dense and sparse (segment_aggregate); a fine-tune with the
+             input pipeline on (depth 2, device copies on a side
+             stream) bit-identical to it off, step for step, then timed
+             and profiled both ways; `train cost-model --from-store
+             --deltas --warm-start` and `launch.flywheel` twice (the
+             second appends to the delta chain), each in its own process.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -2020,6 +2038,448 @@ def phase_gat_lstm(card: str, trained: dict, replay, whole) -> dict:
     return total
 
 
+# -------------------------------------------------------------------- 14
+# benchmarks/bench_flywheel.py's scenario at its own constants (BENCH_SCALE
+# 1, nothing cut) on the port: the world, the hard set and the loop
+FW_PROGRAMS = 20           # base-corpus programs
+FW_CORPUS_CONFIGS = 16     # measured tiles per base-corpus kernel
+FW_SHARD_RECORDS = 128     # build_corpus's default
+FW_POOL = 20               # candidate target kernels to pick from
+FW_TARGETS = 6             # hard-set size
+FW_TARGET_NODES = 16
+FW_CANDIDATES = 32         # enumerated tiles per target kernel
+FW_ROUNDS = 3
+FW_PER_KERNEL = 3          # hardware evals per target kernel, in total
+FW_MIN_HARD_REGRET = 0.005
+FW_STATIC_STEPS = 120
+FW_FT_STEPS = 120          # per-round fine-tune
+FW_WARM_STEPS = 150        # the warm-start vs scratch gate
+FW_MC_SAMPLES = 8
+FW_TIMED, FW_PROFILED = 50, 20
+
+
+def flywheel_model_cfg(use_kernels: bool, adjacency: str = "dense"):
+    """`benchmarks/common.py`'s `paper_tile_model()`: GraphSAGE + LSTM,
+    hidden 64, opcode embedding 16, max_nodes 48, dropout 0.1."""
+    from repro_torch.core.model import CostModelConfig
+    return CostModelConfig(gnn="graphsage", reduction="lstm", hidden_dim=64,
+                           opcode_embed_dim=16, max_nodes=48, dropout=0.1,
+                           adjacency=adjacency,
+                           use_pallas_aggregate=use_kernels)
+
+
+def _module_cli(args, timeout: int = 600) -> str:
+    """`python -m <args>` with the checkout's `src` on the path; its
+    standard output. Fails on a non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC, env.get("PYTHONPATH")) if p)
+    res = subprocess.run([sys.executable, "-m", *args], env=env,
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=ROOT)
+    if res.returncode:
+        raise AssertionError(f"python -m {' '.join(args)} exited "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    return res.stdout
+
+
+def flywheel_world(work: str) -> dict:
+    """The base corpus store, built by `python -m
+    repro_torch.launch.build_corpus` (2 workers) in a subprocess, held
+    against an in-process `write_corpus` of the same records under the
+    same spec (equal manifest hashes); the normalizer fitted on it."""
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.fusion import apply_fusion, default_fusion
+    from repro_torch.data.store import StreamingCorpus, write_corpus
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.data.tile_dataset import build_tile_records, \
+        fit_tile_normalizer
+    from repro_torch.launch.build_corpus import make_spec
+    out = os.path.join(work, "corpus")
+    t0 = time.perf_counter()
+    stdout = _module_cli(["repro_torch.launch.build_corpus", "--out", out,
+                          "--kind", "tile", "--programs", str(FW_PROGRAMS),
+                          "--seed", "0", "--workers", "2", "--tile-configs",
+                          str(FW_CORPUS_CONFIGS)])
+    cli_s = time.perf_counter() - t0
+    cli_hash = stdout.split("manifest_hash=")[1].split()[0]
+    kernels = [k for p in generate_corpus(FW_PROGRAMS, seed=0)
+               for k in apply_fusion(p, default_fusion(p))]
+    records = build_tile_records(kernels, TPUSimulator(),
+                                 max_configs_per_kernel=FW_CORPUS_CONFIGS,
+                                 seed=0)
+    spec = make_spec("tile", programs=FW_PROGRAMS, seed=0,
+                     shard_records=FW_SHARD_RECORDS,
+                     tile_opts={"max_configs_per_kernel": FW_CORPUS_CONFIGS,
+                                "max_kernel_nodes": 64})
+    inproc = write_corpus(os.path.join(work, "inproc"), "tile", records,
+                          spec=spec, shard_records=FW_SHARD_RECORDS)
+    store = os.path.join(out, "tile")
+    base = list(StreamingCorpus.open(store))
+    log(f"[flywheel] base store: build_corpus --workers 2 in {cli_s:.2f} s "
+        f"(subprocess), {len(base)} records ({len(kernels)} kernels, "
+        f"{FW_PROGRAMS} programs), manifest_hash {cli_hash}; in-process "
+        f"write_corpus of the same {len(records)} records: "
+        f"{inproc['manifest_hash']}")
+    if cli_hash != inproc["manifest_hash"]:
+        raise AssertionError("build_corpus and write_corpus disagree on "
+                             "the manifest hash")
+    return {"store": store, "records": records, "base": base,
+            "norm": fit_tile_normalizer(base)}
+
+
+def flywheel_static(world: dict, device, ckpt_dir: str):
+    """The static round-0 model, trained as bench_flywheel.py's
+    `train_static` (AdamW 2e-3, decayed 0.9 every quarter), kernels off;
+    its params and AdamW state checkpointed in `ckpt_dir`."""
+    from repro_torch.data.sampler import TileBatchSampler
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.trainer import CostModelTrainer, \
+        TrainerConfig
+    quarter = max(FW_STATIC_STEPS // 4, 1)
+    sampler = TileBatchSampler(world["base"], world["norm"],
+                               kernels_per_batch=4, configs_per_kernel=8,
+                               max_nodes=48)
+    tc = TrainerConfig(task="tile", steps=FW_STATIC_STEPS, ckpt_every=0,
+                       log_every=quarter,
+                       optim=AdamWConfig(lr=2e-3, schedule="exponential",
+                                         lr_decay=0.9, decay_every=quarter))
+    tr = CostModelTrainer(flywheel_model_cfg(False), tc, sampler,
+                          device=device)
+    t0 = time.perf_counter()
+    res = tr.run(resume=False)
+    log(f"[flywheel] static model: {FW_STATIC_STEPS} steps in "
+        f"{time.perf_counter() - t0:.2f} s, loss {res['loss']:.6f}")
+    save_checkpoint(ckpt_dir, FW_STATIC_STEPS,
+                    {"params": tr.params, "opt": tr.opt_state})
+    return tr.model
+
+
+def flywheel_hard_set(world: dict, model, cfg) -> dict:
+    """bench_flywheel.py's hard set: the pool kernels whose static top-k
+    regret is worst (at least FW_MIN_HARD_REGRET), scored under `cfg`."""
+    import numpy as np
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.synthetic import random_kernel
+    from repro_torch.data.tile_dataset import enumerate_tiles
+    from repro_torch.search import LearnedEstimator
+    sim = TPUSimulator()
+    pool = [random_kernel(FW_TARGET_NODES, seed=7000 + i,
+                          program=f"fw_target_{i}") for i in range(FW_POOL)]
+    tiles = [enumerate_tiles(k, max_configs=FW_CANDIDATES) for k in pool]
+    groups = [[k.with_tile(t) for t in ts] for k, ts in zip(pool, tiles)]
+    scores = LearnedEstimator.from_params(
+        model, cfg, world["norm"], max_nodes=cfg.max_nodes,
+        cache_capacity=0).estimate_groups(groups)
+    truth = [np.array([sim.measure(g) for g in grp], np.float64)
+             for grp in groups]
+    regrets = []
+    for s, t in zip(scores, truth):
+        picks = np.argsort(np.asarray(s), kind="stable")[:FW_PER_KERNEL]
+        regrets.append(float(np.min(t[picks]) / np.min(t) - 1.0))
+    order = sorted(range(FW_POOL), key=lambda i: (-regrets[i], i))
+    hard = [i for i in order if regrets[i] >= FW_MIN_HARD_REGRET]
+    hard = hard[:FW_TARGETS] or order[:FW_TARGETS]
+    log(f"[flywheel] hard set: {[f'fw_target_{i}' for i in hard]} (static "
+        f"top-{FW_PER_KERNEL} regrets {[round(regrets[i], 4) for i in hard]})")
+    return {"targets": [pool[i] for i in hard],
+            "tiles": [tiles[i] for i in hard],
+            "groups": [groups[i] for i in hard],
+            "scores0": [scores[i] for i in hard]}
+
+
+def _record_blob(rec) -> str:
+    """Canonical transit form of one record: the parity gate's bytes."""
+    from repro_torch.data.store import pack_record
+    return json.dumps(pack_record("tile", rec), sort_keys=True)
+
+
+def _replay_delta_records(rounds, groups) -> list:
+    """Each round's raw delta records rebuilt from the acquisition
+    stream: one log fed round by round, its pending sweeps taken after
+    each (what the loop's `MeasurementLog.flush_to` appended)."""
+    from repro_torch.flywheel import MeasurementLog
+    out = []
+    ml = MeasurementLog("tile")
+    for r in rounds:
+        for gi, ci, rt in (r.acquired or []):
+            ml.record(groups[gi][ci], rt)
+        out.extend(ml.take_pending(min_configs=1))
+    return out
+
+
+def flywheel_loop(world: dict, model, cfg, hard: dict, work: str) -> dict:
+    """`run_flywheel` against the hard set at the static plan's budget,
+    scoring under `cfg`; the regret margin over the static plan and the
+    delta-chain parity with a from-scratch rebuild."""
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.store import StreamingCorpus, write_corpus
+    from repro_torch.flywheel import FlywheelConfig, run_flywheel
+    from repro_torch.flywheel.loop import deploy_regret, static_plan
+    budget = FW_PER_KERNEL * len(hard["targets"])
+    fc = FlywheelConfig(rounds=FW_ROUNDS, budget_evals=budget,
+                        finetune_steps=FW_FT_STEPS, warmup_steps=20,
+                        mc_samples=FW_MC_SAMPLES, spread="kernel", seed=0,
+                        max_configs=FW_CANDIDATES)
+    t0 = time.perf_counter()
+    res = run_flywheel(TPUSimulator(), world["store"], hard["targets"],
+                       model, cfg, world["norm"], fc,
+                       ckpt_dir=os.path.join(work, "rounds"),
+                       tiles=hard["tiles"])
+    loop_s = time.perf_counter() - t0
+    static_regret = deploy_regret(res.truth, hard["scores0"],
+                                  static_plan(hard["scores0"], budget))
+    for r in res.rounds:
+        log(f"[flywheel] round {r.round}: +{r.measured} evals "
+            f"(+{r.delta_records} delta records), train loss "
+            f"{r.train_loss:.6f} -> regret {r.regret:.6f}")
+    chained = StreamingCorpus.open(world["store"]).with_deltas()
+    rebuilt = os.path.join(work, "rebuild")
+    write_corpus(rebuilt, "tile", world["records"] + _replay_delta_records(
+        res.rounds, hard["groups"]), dedup=True)
+    rebuilt = list(StreamingCorpus.open(rebuilt))
+    parity = (len(chained) == len(rebuilt)
+              and all(_record_blob(a) == _record_blob(b)
+                      for a, b in zip(chained, rebuilt)))
+    margin = static_regret - res.final_regret
+    log(f"[flywheel] run_flywheel: {FW_ROUNDS} rounds in {loop_s:.2f} s, "
+        f"{res.evals_charged}/{budget} evals charged; static plan regret "
+        f"{static_regret:.6f}, flywheel {res.final_regret:.6f} "
+        f"(margin {margin:.6f}, gate > 0), model pick without "
+        f"measurements {res.regret0:.6f}; delta parity: chained "
+        f"{len(chained)} records ({chained.num_deltas} deltas, chain "
+        f"{chained.chain_hash[:12]}) vs rebuild {len(rebuilt)}: "
+        f"{'identical' if parity else 'MISMATCH'}")
+    return {"res": res, "margin": margin, "parity": parity,
+            "chained": chained, "seconds": loop_s}
+
+
+def flywheel_warm_gate(world: dict, chained, static_ckpt: str, device,
+                       work: str) -> float:
+    """Warm start (the static checkpoint, params + AdamW moments) against
+    scratch on the chained corpus: the step at which the warm run first
+    reaches the scratch run's final `tile_val_loss` (a fixed set of
+    base-corpus batches), over FW_WARM_STEPS. Returns that ratio (2.0:
+    never)."""
+    import torch
+    from repro_torch.core.model import cost_model_init
+    from repro_torch.data.sampler import TileBatchSampler
+    from repro_torch.flywheel import fine_tune
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.training.optim import adamw_init
+    cfg = flywheel_model_cfg(True)
+    val = TileBatchSampler(world["base"], world["norm"], kernels_per_batch=4,
+                           configs_per_kernel=8, max_nodes=48, seed=123)
+    every = max(FW_WARM_STEPS // 10, 1)
+    init_dir = os.path.join(work, "init")
+    tree = cost_model_init(torch.Generator().manual_seed(1), cfg,
+                           device=device).tree()
+    save_checkpoint(init_dir, 0, {"params": tree, "opt": adamw_init(tree)})
+    kw = dict(steps=FW_WARM_STEPS, lr=1e-3, warmup_steps=20, seed=5,
+              val_sampler=val, eval_every=every, device=device)
+    scratch = fine_tune(chained, world["norm"], cfg, warm_start_dir=init_dir,
+                        **kw)
+    target = scratch.val_history[-1][1]
+    warm = fine_tune(chained, world["norm"], cfg,
+                     warm_start_dir=static_ckpt, **kw)
+    match = next((s for s, v in warm.val_history if v <= target), None)
+    ratio = match / FW_WARM_STEPS if match is not None else 2.0
+    log(f"[flywheel] warm start: scratch {FW_WARM_STEPS} steps -> val "
+        f"{target:.6f}; warm start reaches it at step {match} (ratio "
+        f"{ratio:.4f}, gate <= 0.5); warm val history "
+        f"{[(s, round(v, 6)) for s, v in warm.val_history]}")
+    return ratio
+
+
+def flywheel_mc(model, world: dict, hard: dict) -> dict:
+    """MC-dropout acquisition over the hard set's candidates with the
+    kernels on and off, from the same seeds: dense (graph_aggregate) and
+    sparse (segment_aggregate); mean and std within 1e-4·max|pred|.
+    Returns the kernels' launches of the kernels-on runs."""
+    import numpy as np
+    import torch
+    from repro_torch.search import AcquisitionEstimator
+    flat = [k for g in hard["groups"] for k in g]
+    launches = {}
+    for layout, kernel in (("dense", "graph_aggregate"),
+                           ("sparse", "segment_aggregate")):
+        got = {}
+        for on in (True, False):
+            acq = AcquisitionEstimator(
+                model, flywheel_model_cfg(on, layout), world["norm"],
+                samples=FW_MC_SAMPLES, seed=0, max_nodes=48)
+            acq.estimate_with_variance(flat[:8])          # warm-up
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            got[on] = acq.estimate_with_variance(flat)    # host arrays
+            secs = time.perf_counter() - t0
+            if on:
+                launches[kernel] = _launches()[kernel]
+                log(f"[flywheel] MC acquisition {layout}, kernels on: "
+                    f"{len(flat)} candidates x {FW_MC_SAMPLES} passes in "
+                    f"{secs:.4f} s: {len(flat) / secs:.1f} candidates/s "
+                    f"({len(flat) * FW_MC_SAMPLES / secs:.1f} graph "
+                    f"forwards/s), {launches[kernel]} {kernel} launches")
+        tol = _tol(got[False][0])
+        err_mean = float(np.max(np.abs(got[True][0] - got[False][0])))
+        err_std = float(np.max(np.abs(got[True][1] - got[False][1])))
+        std = got[True][1]
+        log(f"[flywheel] MC {layout}, kernels on vs off: mean max_abs_err "
+            f"{err_mean:.3e}, std max_abs_err {err_std:.3e} (tol "
+            f"{tol:.3e}); std over candidates {float(np.min(std)):.4f}.."
+            f"{float(np.max(std)):.4f}")
+        if not (np.all(np.isfinite(got[True][0])) and err_mean <= tol
+                and err_std <= tol):
+            raise AssertionError(f"MC {layout}: kernels on vs off "
+                                 f"{err_mean}, {err_std} > {tol}")
+        if not launches[kernel]:
+            raise AssertionError(f"MC {layout}: {kernel} never launched")
+    return launches
+
+
+def flywheel_prefetch(world: dict, chained, static_ckpt: str,
+                      work: str) -> None:
+    """One round's fine-tune (FW_FT_STEPS from the static checkpoint on
+    the chained corpus) with the input pipeline off and on (depth 2,
+    device copies on a side stream): the same loss at every step and the
+    same final parameters, bit for bit; then a timed and profiled
+    window of each, and of the pipeline without device copies (its
+    batches copied by the step, as with it off)."""
+    import torch
+    from repro_torch.data.sampler import TileBatchSampler
+    from repro_torch.flywheel import fine_tune
+    from repro_torch.training.optim import tree_leaves
+    from repro_torch.training.trainer import CostModelTrainer, \
+        TrainerConfig
+    cfg = flywheel_model_cfg(True)
+    runs = {}
+    for depth in (0, 2):
+        path = os.path.join(work, f"prefetch-{depth}.jsonl")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft = fine_tune(chained, world["norm"], cfg,
+                       warm_start_dir=static_ckpt, steps=FW_FT_STEPS,
+                       lr=1e-3, warmup_steps=20, seed=0, prefetch=depth,
+                       prefetch_device_put=depth > 0, log_every=1,
+                       metrics_path=path, device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with open(path) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        runs[depth] = (ft.params, losses)
+        log(f"[flywheel] fine-tune round, prefetch {depth}: {secs:.3f} s "
+            f"for {FW_FT_STEPS} steps ({secs / FW_FT_STEPS * 1e3:.3f} ms "
+            f"a step, host clock, a loss read back every step), last loss "
+            f"{losses[-1]:.6f}")
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs[0][0].tree()), tree_leaves(runs[2][0].tree())))
+    same_losses = runs[0][1] == runs[2][1] and len(runs[0][1]) == FW_FT_STEPS
+    log(f"[flywheel] prefetch 2 vs 0: losses bit-identical at all "
+        f"{len(runs[0][1])} steps: {same_losses}; final parameters "
+        f"bit-identical: {same_params}")
+    if not (same_losses and same_params):
+        raise AssertionError("prefetch changed the fine-tune")
+    held = TileBatchSampler(chained, world["norm"], kernels_per_batch=4,
+                            configs_per_kernel=8, max_nodes=48,
+                            seed=123).batch(0)
+    steps = 1 + FW_TIMED + FW_PROFILED
+    for depth, put in ((0, False), (2, False), (2, True)):
+        tr = CostModelTrainer(
+            flywheel_model_cfg(False),
+            TrainerConfig(task="tile", steps=steps, ckpt_every=0,
+                          log_every=steps, prefetch=depth,
+                          prefetch_device_put=put),
+            TileBatchSampler(chained, world["norm"], kernels_per_batch=4,
+                             configs_per_kernel=8, max_nodes=48),
+            device=DEVICE)
+        tr.warm_start(static_ckpt)
+        train_run(f"fine-tune, prefetch {depth}"
+                  f"{', device copies' if put else ''}", tr, steps, held,
+                  timed=FW_TIMED, profiled=FW_PROFILED, gate_held=False,
+                  tag="flywheel")
+
+
+def flywheel_clis(work: str, store: str, device) -> None:
+    """The CLIs on `device`, each in its own process: `train cost-model
+    --from-store` into a base checkpoint, then `--deltas --warm-start`
+    from it; `launch.flywheel` twice on one fresh store (the second run,
+    at another seed, appends to the delta chain)."""
+    import re
+    base, warm = os.path.join(work, "cli-base"), os.path.join(work,
+                                                             "cli-warm")
+    t0 = time.perf_counter()
+    common = ["repro_torch.launch.train", "cost-model", "--task", "tile",
+              "--from-store", store, "--log-every", "10", "--device",
+              str(device)]
+    out = _module_cli(common + ["--steps", "20", "--ckpt-dir", base])
+    out += _module_cli(common + ["--deltas", "--warm-start", base,
+                                 "--steps", "10", "--ckpt-dir", warm])
+    log(f"[flywheel] train CLI --from-store, then --deltas --warm-start: "
+        f"{time.perf_counter() - t0:.2f} s; "
+        + " | ".join(line for line in out.splitlines() if line))
+    if not ("chained" in out and "warm-started from" in out
+            and "done: step=10" in out):
+        raise AssertionError("train --from-store --deltas did not run")
+    flags = ["repro_torch.launch.flywheel", "--store",
+             os.path.join(work, "cli-store"), "--ckpt-dir",
+             os.path.join(work, "cli-fw"), "--rounds", "2",
+             "--budget-evals", "8", "--programs", "4", "--targets", "3",
+             "--static-steps", "40", "--finetune-steps", "30",
+             "--device", str(device)]
+    deltas = []
+    for extra in ([], ["--seed", "1"]):
+        t0 = time.perf_counter()
+        out = _module_cli(flags + extra)
+        found = re.search(r"store: (\d+) records, (\d+) delta", out)
+        if found is None:
+            raise AssertionError(f"launch.flywheel printed no store: {out}")
+        deltas.append(int(found.group(2)))
+        log(f"[flywheel] launch.flywheel {' '.join(extra) or '(seed 0)'}: "
+            f"{time.perf_counter() - t0:.2f} s; "
+            + " | ".join(line for line in out.splitlines() if line))
+    if not 0 < deltas[0] < deltas[1]:
+        raise AssertionError(f"the second flywheel run appended no delta: "
+                             f"{deltas}")
+
+
+def phase_flywheel(card: str, work: str) -> dict:
+    """Phase 14: the data flywheel at bench_flywheel.py's constants.
+    Returns the aggregation kernels' launches of its kernels-on runs
+    (run_flywheel's scoring and acquisition, the MC check)."""
+    log(f"[flywheel] on {card}")
+    t0 = time.perf_counter()
+    world = flywheel_world(work)
+    static_ckpt = os.path.join(work, "static")
+    model = flywheel_static(world, DEVICE, static_ckpt)
+    cfg = flywheel_model_cfg(True)
+    hard = flywheel_hard_set(world, model, cfg)
+    launches = flywheel_mc(model, world, hard)
+    _reset_launches()
+    loop = flywheel_loop(world, model, cfg, hard, work)
+    fly = _launches()
+    log(f"[flywheel] run_flywheel launches: {fly['graph_aggregate']} "
+        f"graph_aggregate, {fly['segment_aggregate']} segment_aggregate")
+    if not fly["graph_aggregate"]:
+        raise AssertionError("run_flywheel never launched graph_aggregate")
+    launches["graph_aggregate"] += fly["graph_aggregate"]
+    if not loop["margin"] > 0:
+        raise AssertionError(f"flywheel regret margin {loop['margin']} "
+                             "not above 0")
+    if not loop["parity"]:
+        raise AssertionError("delta chain differs from its rebuild")
+    ratio = flywheel_warm_gate(world, loop["chained"], static_ckpt, DEVICE,
+                               work)
+    if not ratio <= 0.5:
+        raise AssertionError(f"warm-start steps ratio {ratio} > 0.5")
+    flywheel_prefetch(world, loop["chained"], static_ckpt, work)
+    flywheel_clis(work, world["store"], DEVICE)
+    log(f"[flywheel] phase took {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches of its kernels-on runs: {launches}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2126,12 +2586,17 @@ def main() -> int:
         autotune = phase_autotune(card, trained, replay, tmp.name)
     gat_lstm = phase_gat_lstm(card, trained, replay, whole)
 
-    # each path's own count: the serving runs of 4-5, then 12 and 13
+    # 14: the data flywheel
+    with tempfile.TemporaryDirectory() as fw_tmp:
+        flywheel = phase_flywheel(card, fw_tmp)
+
+    # each path's own count: the serving runs of 4-5, then 12, 13 and 14
     for name, main_run in (("graph_aggregate", dense),
                            ("segment_aggregate", sparse),
                            ("segment_aggregate_i8", q_sparse)):
         rows[name]["launches"] = (main_run["launches"][name]
-                                  + autotune[name] + gat_lstm[name])
+                                  + autotune[name] + gat_lstm[name]
+                                  + flywheel.get(name, 0))
     kernels = []
     for name, source, replaces in (
             ("graph_aggregate", "graph_aggregate",

@@ -207,10 +207,13 @@ def cost_model_init(gen: torch.Generator, cfg: CostModelConfig, *,
 def batch_to_device(batch, device: torch.device):
     """A `GraphBatch`/`SparseGraphBatch`/`SegmentedGraphBatch` of numpy
     arrays → the same dataclass holding tensors on `device` (one copy per
-    array; a segmented batch's `inner` batch too)."""
+    array; a segmented batch's `inner` batch too). Leaves that are
+    tensors already (a prefetched batch) move only if they lie elsewhere."""
     def move(a):
         if dataclasses.is_dataclass(a):
             return batch_to_device(a, device)
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return dataclasses.replace(batch, **{
         f.name: move(getattr(batch, f.name))

@@ -8,10 +8,22 @@
       PYTHONPATH=src python -m repro_torch.launch.train cost-model \
           --task tile --steps 2000 --ckpt-dir ckpts/tile
 
+    With --from-store the corpus is streamed shard by shard from an
+    on-disk store built by `python -m repro_torch.launch.build_corpus`
+    (or the JAX package's builder: the format is the same), with no
+    generation or oracle measurement at train time; --deltas trains on
+    the store's base+delta chained view (the flywheel's appended
+    measurement shards, chain-verified), and with --warm-start it is
+    the flywheel's incremental retrain:
+
+      PYTHONPATH=src python -m repro_torch.launch.train cost-model \
+          --task tile --from-store experiments/corpora/v1/tile --deltas \
+          --warm-start ckpts/tile --ckpt-dir ckpts/tile_ft \
+          --steps 200 --warmup-steps 20
+
     The same flags and defaults as the reference. Not ported yet, so they
-    exit with an error: --from-store and --deltas (the corpus store,
-    ROADMAP Queue 1 item 4), --dp >= 1 and --compress-grads
-    (data-parallel training, item 5).
+    exit with an error: --dp >= 1 and --compress-grads (data-parallel
+    training, ROADMAP Queue 1 item 5).
 
   lm — the LM train step is not ported yet (ROADMAP Queue 1 item 6); the
     subcommand exits with an error.
@@ -43,13 +55,13 @@ def train_cost_model(args) -> None:
     if args.dp < 0 or args.mp < 1:
         raise SystemExit(f"--dp must be >= 0 and --mp >= 1, "
                          f"got dp={args.dp} mp={args.mp}")
-    if args.from_store or args.deltas:
-        raise SystemExit("--from-store/--deltas: the corpus store is not "
-                         "ported yet (ROADMAP Queue 1 item 4)")
     if args.dp >= 1 or args.compress_grads:
         raise SystemExit("--dp >= 1/--compress-grads: data-parallel "
                          "training is not ported yet (ROADMAP Queue 1 "
                          "item 5); use --dp 0")
+    if args.deltas and not args.from_store:
+        raise SystemExit("--deltas only applies to a stored corpus; "
+                         "pass --from-store DIR")
     if args.warm_start:
         from repro_torch.training.checkpoint import latest_step
         if latest_step(args.warm_start) is None:
@@ -63,15 +75,34 @@ def train_cost_model(args) -> None:
                 "would overwrite the checkpoint being fine-tuned from")
 
     want_kind = "tile" if args.task.startswith("tile") else "fusion"
-    sim = TPUSimulator()
-    programs = generate_corpus(args.programs, seed=args.seed)
-    split = split_programs([p.program for p in programs],
-                           method=args.split, seed=args.seed)
-    if want_kind == "tile":
-        ds = build_tile_dataset(programs, sim, max_configs_per_kernel=24)
+    if args.from_store:
+        from repro_torch.data.store import StreamingCorpus
+        corpus = StreamingCorpus.open(args.from_store)
+        if corpus.kind != want_kind:
+            raise SystemExit(f"--from-store points at a {corpus.kind!r} "
+                             f"corpus but --task {args.task} needs "
+                             f"{want_kind!r}")
+        if args.deltas:
+            corpus = corpus.with_deltas()
+            print(f"chained {corpus.num_deltas} delta shard set(s) "
+                  f"(chain {corpus.chain_hash[:12]}…)")
+        split = split_programs(corpus.programs(), method=args.split,
+                               seed=args.seed)
+        recs = corpus.select_programs(split["train"])
+        ident = (corpus.chain_hash if args.deltas
+                 else corpus.manifest_hash)
+        print(f"streaming {len(recs)}/{len(corpus)} records from "
+              f"{args.from_store} (manifest {ident[:12]}…)")
     else:
-        ds = build_fusion_dataset(programs, sim, configs_per_program=12)
-    recs = filter_by_programs(ds.records, split["train"])
+        sim = TPUSimulator()
+        programs = generate_corpus(args.programs, seed=args.seed)
+        split = split_programs([p.program for p in programs],
+                               method=args.split, seed=args.seed)
+        if want_kind == "tile":
+            ds = build_tile_dataset(programs, sim, max_configs_per_kernel=24)
+        else:
+            ds = build_fusion_dataset(programs, sim, configs_per_program=12)
+        recs = filter_by_programs(ds.records, split["train"])
     mc = CostModelConfig(gnn=args.gnn, reduction=args.reduction,
                          hidden_dim=args.hidden, opcode_embed_dim=32,
                          max_nodes=args.max_nodes)
@@ -118,9 +149,14 @@ def main(argv=None) -> None:
     cm.add_argument("--steps", type=int, default=2000)
     cm.add_argument("--programs", type=int, default=48)
     cm.add_argument("--from-store", default="",
-                    help="not ported yet (ROADMAP Queue 1 item 4)")
+                    help="stream records from an on-disk corpus store "
+                         "(one kind's directory, e.g. corpora/v1/tile) "
+                         "instead of regenerating + re-measuring")
     cm.add_argument("--deltas", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 4)")
+                    help="with --from-store: train on the base+delta "
+                         "chained view (StreamingCorpus.with_deltas) — "
+                         "the flywheel's appended measurement shards "
+                         "included, chain-verified")
     cm.add_argument("--warm-start", default="",
                     help="checkpoint directory of ANOTHER run (either "
                          "package's) to fine-tune from: params + AdamW "

@@ -3,11 +3,12 @@
 Counterpart of `repro.search`: `CostEstimator` adapters (hardware /
 analytical / learned / cascade) with shared `BudgetMeter` accounting, and
 the batched search engine (`topk_rerank`, population `anneal`) both
-autotuners are thin wrappers over. The learned estimator scores on the
-port's `CostModel` device. Not ported yet: the MC-dropout
-`AcquisitionEstimator` and `route_variance` of the data flywheel
-(`repro.search.acquisition`; ROADMAP Queue 1 item 4).
+autotuners are thin wrappers over, and the data flywheel's MC-dropout
+`AcquisitionEstimator` with its `route_variance` planner. The learned
+and acquisition estimators score on the port's `CostModel` device.
 """
+from repro_torch.search.acquisition import AcquisitionEstimator, \
+    route_variance
 from repro_torch.search.engine import (
     AnnealResult,
     RerankChoice,
@@ -26,8 +27,8 @@ from repro_torch.search.estimator import (
 )
 
 __all__ = [
-    "AnalyticalEstimator", "AnnealResult", "BudgetExhausted",
-    "BudgetMeter", "CascadeEstimator", "CostEstimator",
+    "AcquisitionEstimator", "AnalyticalEstimator", "AnnealResult",
+    "BudgetExhausted", "BudgetMeter", "CascadeEstimator", "CostEstimator",
     "HardwareEstimator", "LearnedEstimator", "RerankChoice", "anneal",
-    "score_groups", "topk_rerank",
+    "route_variance", "score_groups", "topk_rerank",
 ]

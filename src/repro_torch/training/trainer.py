@@ -17,15 +17,20 @@ and the ported AdamW (`training.optim.adamw_update`) under
 `torch.no_grad()`, written into the model's parameters in place.
 Batches are whatever the sampler yields: dense `GraphBatch`, packed
 `SparseGraphBatch` or `SegmentedGraphBatch`, as numpy; each step moves
-its batch to the trainer's device. The device is explicit (`"cuda"` by
-default); asking for the card without one raises.
+its batch to the trainer's device. With `TrainerConfig.prefetch > 0` the
+sampler is wrapped in a `repro_torch.data.prefetch.Prefetcher`: a
+background thread encodes that many batches ahead, and with
+`prefetch_device_put` it also copies their graph arrays to the trainer's
+device (pinned memory, a side stream); the step then takes them as they
+are. The stream of batches, and so every loss, is the same as without.
+The device is explicit (`"cuda"` by default); asking for the card
+without one raises.
 
 The aggregation kernels have no backward in either package, so the
 trainer refuses `use_pallas_aggregate=True` on every layout (the kernel
 wrappers also refuse inputs that require grad). Not ported yet, and
 refused with `NotImplementedError` (ROADMAP Queue 1 item 5): the
-data-parallel mesh step (`dp >= 1`), int8-compressed gradients and the
-prefetching input pipeline.
+data-parallel mesh step (`dp >= 1`) and int8-compressed gradients.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.optim import AdamWConfig, adamw_init, \
     adamw_update, tree_leaves, tree_map
 
-_ITEM5 = "ROADMAP Queue 1 item 5 (input pipeline and data-parallel training)"
+_ITEM5 = "ROADMAP Queue 1 item 5 (data-parallel training)"
 
 
 @dataclass
@@ -62,11 +67,12 @@ class TrainerConfig:
     seed: int = 0
     ckpt_dir: str = ""
     metrics_path: str = ""
-    # the reference's data-parallel and input-pipeline switches: only
-    # their defaults run here (the rest is ROADMAP Queue 1 item 5)
+    prefetch: int = 0                     # batches encoded ahead (0 = off)
+    prefetch_device_put: bool = False     # also overlap host->device copies
+    # the reference's data-parallel switches: only their defaults run
+    # here (the rest is ROADMAP Queue 1 item 5)
     compress_grads: bool = False
     dp: int = 0
-    prefetch: int = 0
     optim: AdamWConfig = field(default_factory=AdamWConfig)
 
 
@@ -94,10 +100,6 @@ class CostModelTrainer:
             raise NotImplementedError(
                 f"compress_grads (int8 error-feedback all-reduce) is not "
                 f"ported yet: {_ITEM5}")
-        if cfg.prefetch > 0:
-            raise NotImplementedError(
-                f"prefetch={cfg.prefetch} (the background input pipeline) "
-                f"is not ported yet: {_ITEM5}; use prefetch=0")
         if model_cfg.precision != "f32":
             raise ValueError(
                 f"training runs in f32, got precision="
@@ -268,22 +270,31 @@ class CostModelTrainer:
         step)` runs every `eval_every` steps; its dict is logged under
         `eval/`. Returns {"step", "loss" (of the last logged step),
         "wall", "interrupted"}."""
-        total = steps if steps is not None else self.cfg.steps
+        cfg = self.cfg
+        total = steps if steps is not None else cfg.steps
         if resume:
             self.maybe_resume()
         old = self._install_signal_handlers()
+        sampler = self.sampler
+        if cfg.prefetch:
+            from repro_torch.data.prefetch import Prefetcher
+            sampler = Prefetcher(
+                self.sampler, depth=cfg.prefetch, start_step=self.step,
+                device=self.device if cfg.prefetch_device_put else None)
         try:
-            return self._run_loop(total, eval_fn, eval_every)
+            return self._run_loop(sampler, total, eval_fn, eval_every)
         finally:
+            if sampler is not self.sampler:
+                sampler.close()
             for sig, h in old.items():
                 signal.signal(sig, h)
 
-    def _run_loop(self, total: int, eval_fn, eval_every) -> dict:
+    def _run_loop(self, sampler, total: int, eval_fn, eval_every) -> dict:
         cfg = self.cfg
         t0 = time.time()
         last_loss = float("nan")
         while self.step < total and not self._stop:
-            stats = self._train_step(self.sampler.batch(self.step))
+            stats = self._train_step(sampler.batch(self.step))
             self.step += 1
             if self.step % cfg.log_every == 0 or self.step == total:
                 last_loss = float(stats["loss"])

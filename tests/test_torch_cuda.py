@@ -742,3 +742,111 @@ def test_socket_server_round_trip_on_the_card():
         assert server.stats.worker_failures == 0
     assert sa.launches > before
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------- input pipeline, flywheel
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_prefetch_copies_on_a_side_stream_the_consumer_waits_for(
+        layout, monkeypatch):
+    """`Prefetcher(device=cuda)`: the worker pins each array and copies
+    it on a stream of its own, records an event there; the consumer's
+    stream waits on that event and every copied tensor is
+    `record_stream`ed on it. The batches equal the synchronous ones."""
+    _need_card()
+    from repro_torch.core.model import batch_to_device
+    from repro_torch.data.prefetch import Prefetcher
+    _, _, sampler, _, _ = _train_setup(layout)
+    seen = {"pinned": 0, "recorded_on": [], "waited": [], "held": []}
+    pin, record = torch.Tensor.pin_memory, torch.cuda.Event.record
+    wait, hold = torch.cuda.Stream.wait_event, torch.Tensor.record_stream
+
+    def spy_pin(self, *a, **k):
+        seen["pinned"] += 1
+        return pin(self, *a, **k)
+
+    def spy_record(self, stream=None):
+        seen["recorded_on"].append(stream)
+        return record(self, stream)
+
+    def spy_wait(self, event):
+        seen["waited"].append((self, event))
+        return wait(self, event)
+
+    def spy_hold(self, stream):
+        seen["held"].append((self.data_ptr(), stream))
+        return hold(self, stream)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy_pin)
+    monkeypatch.setattr(torch.cuda.Event, "record", spy_record)
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", spy_wait)
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy_hold)
+    consumer = torch.cuda.current_stream()
+    with Prefetcher(sampler, depth=2, device="cuda") as p:
+        for step in range(4):
+            got = p.batch(step).graphs
+            want = batch_to_device(sampler.batch(step).graphs, "cuda")
+            for f in want.__dataclass_fields__:
+                a, b = getattr(got, f), getattr(want, f)
+                assert a.device.type == "cuda"
+                assert torch.equal(a, b), f
+    sides = [s for s in seen["recorded_on"] if s is not None]
+    assert sides and all(s != consumer for s in sides)
+    assert len(seen["waited"]) == 4
+    assert all(s == consumer for s, _ in seen["waited"])
+    n_fields = len(want.__dataclass_fields__)
+    assert seen["pinned"] >= 4 * n_fields
+    assert len(seen["held"]) == 4 * n_fields
+    assert all(s == consumer for _, s in seen["held"])
+
+
+@pytest.mark.cuda
+def test_trainer_prefetch_on_the_card_is_bit_identical():
+    """20 steps with prefetch=2 and device copies equal prefetch=0 on
+    the card, loss by loss and leaf by leaf."""
+    _need_card()
+    import dataclasses
+    from repro_torch.training.optim import tree_leaves
+    from repro_torch.training.trainer import CostModelTrainer
+    cfg, tc, sampler, _, _ = _train_setup("dense")
+    runs = []
+    for depth in (0, 2):
+        tr = CostModelTrainer(cfg, dataclasses.replace(
+            tc, prefetch=depth, prefetch_device_put=depth > 0), sampler)
+        runs.append((tr, [tr.run(s, resume=False)["loss"]
+                          for s in range(1, 21)]))
+    assert runs[0][1] == runs[1][1]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs[0][0].params), tree_leaves(runs[1][0].params)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,kernel", [("dense", "graph_aggregate"),
+                                           ("sparse", "segment_aggregate")])
+def test_mc_acquisition_on_the_card_with_and_without_the_kernels(layout,
+                                                                 kernel):
+    """MC-dropout passes on the card through the aggregation kernel agree
+    with the kernels off (the same masks: one device generator per
+    sample) within 1e-4·max|pred|, and the kernel launches."""
+    _need_card()
+    from repro_torch.core.model import CostModelConfig, cost_model_init
+    from repro_torch.search import AcquisitionEstimator
+    graphs, norm = _small_graphs()
+    kw = dict(gnn="graphsage", reduction="lstm", hidden_dim=64,
+              opcode_embed_dim=16, max_nodes=24, dropout=0.1,
+              adjacency=layout)
+    model = cost_model_init(torch.Generator().manual_seed(0),
+                            CostModelConfig(**kw))
+    got = {}
+    for on in (True, False):
+        before = (ga.launches, sa.launches)
+        acq = AcquisitionEstimator(
+            model, CostModelConfig(**kw, use_pallas_aggregate=on), norm,
+            samples=4, seed=3, max_nodes=24)
+        got[on] = acq.estimate_with_variance(graphs)
+        launched = (ga.launches - before[0], sa.launches - before[1])
+        assert launched[kernel == "segment_aggregate"] > 0 if on \
+            else launched == (0, 0)
+    tol = 1e-4 * max(1.0, float(np.abs(got[False][0]).max()))
+    for i in range(2):
+        assert float(np.abs(got[True][i] - got[False][i]).max()) <= tol
+    assert float(got[True][1].max()) > 0.0

@@ -673,7 +673,7 @@ REJECTED = [
      "no backward"),
     ({}, dict(dp=1), NotImplementedError, "item 5"),
     ({}, dict(compress_grads=True), NotImplementedError, "item 5"),
-    ({}, dict(prefetch=2), NotImplementedError, "item 5"),
+    ({}, dict(dp=2), NotImplementedError, "item 5"),
     ({}, dict(dp=-1), ValueError, "dp must be"),
 ]
 
@@ -833,8 +833,6 @@ def test_cli_trains_and_writes_a_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["cost-model", "--from-store", "x"], "item 4"),
-    (["cost-model", "--deltas"], "item 4"),
     (["cost-model", "--dp", "1"], "item 5"),
     (["cost-model", "--compress-grads"], "item 5"),
     (["lm", "--arch", "yi-9b"], "item 6")])
