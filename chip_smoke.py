@@ -137,6 +137,29 @@ Phases, each reported on its own lines; any failure exits non-zero:
              and profiled both ways; `train cost-model --from-store
              --deltas --warm-start` and `launch.flywheel` twice (the
              second appends to the delta chain), each in its own process.
+15. ddp    — data-parallel training of the cost model on [train]'s
+             corpus and width (dense, dropout 0.1, 50 steps a run):
+             dp=0 against dp=1 (an NCCL group of one rank), bit-identical
+             loss, params and AdamW state; dp=2 as two spawned ranks on
+             the one card over gloo, plain and with the int8
+             error-feedback all-reduce (`--compress-grads`): params
+             bit-equal across the ranks, held-out loss falling; ms per
+             step by CUDA events and the share of it in the step's
+             reduction, per run; each dp=2 checkpoint restored under
+             dp=1 bit-exactly (the int8 one with its residuals at zero),
+             and the plain one served through graph_aggregate (dense)
+             and segment_aggregate (sparse) against the kernels off.
+             Scaling over cards is not measured: one card.
+16. lm-train — the LM train step (`models.lm.train_step_fn`) at
+             h2o-danube-3-4b's full width and depth (24 layers, bf16,
+             remat full; the depth is cut only if it does not fit, and
+             the cut printed), 4 x 2048 tokens in microbatches of 2 (the
+             config's 16 overridden), one repeated batch from seed 0: 3
+             steps with AdamW (then one profiled step) and 3 with
+             Adafactor (lr 1e-2; its first step `grad_of_scan`), each
+             from the seed-0 params: finite losses that fall, the two
+             accumulation modes' step-1 losses equal within 1e-6; s per
+             step, tokens/s, model TFLOP/s (6·N·tokens/s) and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -189,16 +212,18 @@ def time_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn) -> tuple[dict, float]:
+def device_profile(fn, host_ops: bool = True) -> tuple[dict, float]:
     """Run `fn()` once under torch.profiler. Returns ({kernel name:
-    (launches, device µs)} over the CUDA kernels it ran, wall seconds)."""
+    (launches, device µs)} over the CUDA kernels it ran, wall seconds).
+    `host_ops=False` records the device alone: a step of ~40k launches
+    then costs seconds of post-processing, not tens."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -828,14 +853,14 @@ def _tile_sampler(records, norm, layout):
                             adjacency=layout)
 
 
-def _trainer(cfg, sampler, task, **tc_kw):
+def _trainer(cfg, sampler, task, device=None, **tc_kw):
     from repro_torch.training.trainer import CostModelTrainer, \
         TrainerConfig
     from repro_torch.training.optim import AdamWConfig
     tc = TrainerConfig(**{**dict(task=task, ckpt_every=0,
                                  log_every=TRAIN_STEPS,
                                  optim=AdamWConfig(lr=2e-3)), **tc_kw})
-    return CostModelTrainer(cfg, tc, sampler, device=DEVICE)
+    return CostModelTrainer(cfg, tc, sampler, device=device or DEVICE)
 
 
 def _held_loss(trainer, batch) -> float:
@@ -2480,6 +2505,331 @@ def phase_flywheel(card: str, work: str) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- 15
+DDP_STEPS = 50            # each run's steps: dp 0 and 1, dp 2 plain and int8
+DDP_WARM = 5              # of them, before the timed window
+
+
+def _ddp_cfg():
+    from repro_torch.core.model import CostModelConfig
+    return CostModelConfig(adjacency="dense")     # [train]'s, dropout 0.1
+
+
+def _ddp_trainer(data, dp, device=None, **tc_kw):
+    """[train]'s dense trainer, at data-parallel size `dp`."""
+    return _trainer(_ddp_cfg(), _tile_sampler(
+        data["tile_train"], data["tile_norm"], "dense"), "tile", device,
+        dp=dp, **tc_kw)
+
+
+def _ddp_run(tr, held) -> dict:
+    """Train `tr` from step 0 to DDP_STEPS: step 1 alone (its loss), on
+    to DDP_WARM, then the timed window between CUDA events; the step's
+    reduction (`CostModelTrainer._reduce`) is bracketed by CUDA events
+    too. Also the held-out loss before and after."""
+    import torch
+    spans = []
+    reduce = tr._reduce
+
+    def timed(grads, loss):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = reduce(grads, loss)
+        b.record()
+        spans.append((a, b))
+        return out
+    tr._reduce = timed
+    held0 = _held_loss(tr, held)
+    first = tr.run(1, resume=False)["loss"]
+    tr.run(DDP_WARM, resume=False)
+    spans.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    last = tr.run(DDP_STEPS, resume=False)["loss"]
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    n = DDP_STEPS - DDP_WARM
+    ms = start.elapsed_time(end) / n
+    reduce_ms = sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+    del tr._reduce
+    return {"ms": ms, "host_ms": host / n, "reduce_ms": reduce_ms,
+            "share": reduce_ms / ms, "first": first, "last": last,
+            "held": [held0, _held_loss(tr, held)]}
+
+
+def _ddp_rank(out: str, data: dict, device: str) -> None:
+    """One rank of the dp=2 runs (spawned): plain, then int8-compressed
+    gradients; writes its params and numbers under `out`, rank 0 the
+    checkpoints."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.training.optim import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    held = _tile_sampler(data["tile_test"], data["tile_norm"],
+                         "dense").batch(0)
+    res = {}
+    for tag in ("plain", "int8"):
+        tr = _ddp_trainer(data, 2, device, compress_grads=tag == "int8",
+                          ckpt_dir=os.path.join(out, tag))
+        res[tag] = _ddp_run(tr, held)
+        res[tag]["device"] = str(tr.device)
+        np.savez(os.path.join(out, f"{tag}{rank}.npz"),
+                 *[x.detach().cpu().numpy() for x in tree_leaves(tr.params)])
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _bytes_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x.tobytes() == y.tobytes()
+                                    for x, y in zip(a, b))
+
+
+def _params_np(tr) -> list:
+    from repro_torch.training.optim import tree_leaves
+    return [x.detach().cpu().numpy() for x in tree_leaves(tr.params)]
+
+
+def _ddp_line(label, r) -> None:
+    log(f"[ddp] {label}: {r['ms']:.3f} ms/step (CUDA events over "
+        f"{DDP_STEPS - DDP_WARM} steps; host clock {r['host_ms']:.3f}), "
+        f"reduction {r['reduce_ms']:.3f} ms a step ({r['share']:.1%} of "
+        f"it), loss step 1 {r['first']:.6f} -> step {DDP_STEPS} "
+        f"{r['last']:.6f}, held-out loss {r['held'][0]:.6f} -> "
+        f"{r['held'][1]:.6f}")
+
+
+def phase_ddp(card: str, trained: dict, work: str) -> dict:
+    """Phase 15: data-parallel training of the cost model at [train]'s
+    width and corpus. Returns the aggregation kernels' launches of the
+    dp=2 checkpoint's serving runs."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.sharding import init_distributed, spawn_ranks
+    from repro_torch.training.optim import tree_leaves
+    log(f"[ddp] on {card}")
+    t0 = time.perf_counter()
+    data = trained["data"]
+    held = _tile_sampler(data["tile_test"], data["tile_norm"],
+                         "dense").batch(0)
+    runs = {}
+    t_dp0 = _ddp_trainer(data, 0)
+    runs[0] = _ddp_run(t_dp0, held)
+    backend = init_distributed(DEVICE, rank=0, world_size=1,
+                               init_method="file://" + os.path.join(
+                                   work, "store1"))
+    try:
+        t_dp1 = _ddp_trainer(data, 1)
+        log(f"[ddp] dp=1: process group of 1 rank, backend {backend}, "
+            f"device {t_dp1.device}")
+        runs[1] = _ddp_run(t_dp1, held)
+        same = (runs[0]["last"] == runs[1]["last"]
+                and _bytes_equal(_params_np(t_dp0), _params_np(t_dp1))
+                and _bytes_equal(
+                    [x.cpu().numpy() for x in tree_leaves(t_dp0.opt_state)],
+                    [x.cpu().numpy() for x in tree_leaves(t_dp1.opt_state)]))
+        for dp in (0, 1):
+            _ddp_line(f"dp={dp}", runs[dp])
+        log(f"[ddp] dp=1 vs dp=0 after {DDP_STEPS} steps (dropout 0.1): "
+            f"loss {runs[1]['last']!r} vs {runs[0]['last']!r}, params and "
+            f"AdamW state bit-identical: {same}")
+        if not same:
+            raise AssertionError("dp=1 is not bit-identical to dp=0")
+        out = os.path.join(work, "dp2")
+        os.makedirs(out)
+        t1 = time.perf_counter()
+        spawn_ranks(_ddp_rank, (out, data, DEVICE), 2, device=DEVICE)
+        log(f"[ddp] dp=2: 2 ranks spawned on one card (backend gloo: "
+            f"NCCL takes one rank a card), both runs in "
+            f"{time.perf_counter() - t1:.1f} s of host time, process "
+            "start-up included")
+        for tag in ("plain", "int8"):
+            rs = []
+            for r in (0, 1):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    rs.append(json.load(f)[tag])
+            with np.load(os.path.join(out, f"{tag}0.npz")) as z0, \
+                    np.load(os.path.join(out, f"{tag}1.npz")) as z1:
+                equal = _bytes_equal([z0[k] for k in z0.files],
+                                     [z1[k] for k in z1.files])
+            _ddp_line(f"dp=2 {tag} (rank 0 on {rs[0]['device']}, rank 1 "
+                      f"on {rs[1]['device']})", rs[0])
+            log(f"[ddp] dp=2 {tag}: rank 1 {rs[1]['ms']:.3f} ms/step, "
+                f"reduction {rs[1]['reduce_ms']:.3f} ms; params bit-equal "
+                f"across the ranks: {equal}")
+            if not equal:
+                raise AssertionError(f"dp=2 {tag}: ranks diverged")
+            r = rs[0]
+            if not (np.isfinite(r["first"]) and np.isfinite(r["last"])
+                    and r["held"][1] < r["held"][0]):
+                raise AssertionError(f"dp=2 {tag}: held-out loss "
+                                     f"{r['held']} did not fall")
+            runs[f"2 {tag}"] = r
+        log(f"[ddp] scaling over cards: not measured: one card (two ranks "
+            f"share it; dp=2 vs dp=0 step time "
+            f"{runs['2 plain']['ms'] / runs[0]['ms']:.3f}x)")
+        # the dp=2 checkpoints restore under dp=1
+        for tag, kw in (("plain", {}), ("int8", dict(compress_grads=True))):
+            ck = os.path.join(work, f"restore_{tag}")
+            shutil.copytree(os.path.join(out, tag), ck)
+            tr = _ddp_trainer(data, 1, ckpt_dir=ck, **kw)
+            ok = tr.maybe_resume() and tr.step == DDP_STEPS
+            with np.load(os.path.join(out, f"{tag}0.npz")) as z:
+                exact = _bytes_equal(_params_np(tr), [z[k] for k in z.files])
+            ef = ("" if not kw else ", error feedback restarted at zero: "
+                  + str(not any(bool(e.any()) for e in
+                                tree_leaves(tr.opt_state["ef"]))))
+            log(f"[ddp] dp=2 {tag} checkpoint restored under dp=1 at step "
+                f"{tr.step}: params bit-exact: {exact}{ef}")
+            if not (ok and exact) or (kw and "False" in ef):
+                raise AssertionError(f"dp=2 {tag} checkpoint: restore "
+                                     "under dp=1 not exact")
+    finally:
+        dist.destroy_process_group()
+    # the dp=2 model served through both kernels, against them off
+    requests = [[r.kernel.with_tile(t) for t in r.tiles]
+                for r in data["tile_test"]]
+    launches = {}
+    for layout, kernel in (("dense", "graph_aggregate"),
+                           ("sparse", "segment_aggregate")):
+        res = serve(f"dp=2 checkpoint {layout}", trained_services(
+            data, os.path.join(out, "plain"), _ddp_cfg(), layout), requests,
+            [kernel], tag="ddp", profiled=False)
+        launches[kernel] = res["launches"][kernel]
+    log(f"[ddp] phase took {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches of its serving runs: {launches}")
+    return launches
+
+
+# -------------------------------------------------------------------- 16
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO = 2048, 4, 2
+LM_TRAIN_STEPS = 3        # a run, per optimizer, on one repeated batch
+LM_TRAIN_DEPTHS = (24, 20, 16, 12)   # the config's 24 first, then cuts
+# Adafactor scales its step by the parameter's RMS (~0.02 at init): at
+# AdamW's 3e-4 that is below a bf16 ulp of the weights and moves nothing
+LM_ADAFACTOR_LR = 1e-2
+# grad_of_scan and scan_of_grads take the same forward; their step-1
+# losses (both of the seed-0 params) agree to f32 rounding of the mean
+LM_ACCUM_RTOL = 1e-6
+
+
+def _lm_train_run(cfg, batch, optimizer: str, lr) -> dict:
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.training.optim import AdamWConfig
+    c = dataclasses.replace(cfg, optimizer=optimizer)
+    opt_cfg = None if lr is None else AdamWConfig(lr=lr)
+    params = lm.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                            c, device=DEVICE)
+    n_params = lm.param_count(params)
+    state = lm.make_optimizer(c, opt_cfg)[0](params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, modes = [], [], []
+    for i in range(LM_TRAIN_STEPS):
+        # Adafactor's first step differentiates the microbatch loop whole
+        mode = ("grad_of_scan" if optimizer == "adafactor" and i == 0
+                else "scan_of_grads")
+        step = lm.train_step_fn(dataclasses.replace(c, grad_accum=mode),
+                                opt_cfg)
+        t0 = time.perf_counter()
+        params, state, stats = step(params, state, batch)
+        losses.append(float(stats["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        modes.append(mode)
+    peak = torch.cuda.max_memory_allocated()
+    if optimizer == "adamw":        # where the time goes: one more step
+        prof, wall = device_profile(lambda: step(params, state, batch),
+                                    host_ops=False)
+        busy = sum(us for _, us in prof.values()) / 1e6
+        log(f"[lm-train] {optimizer} profiled step: wall {wall:.3f} s, "
+            f"device busy {busy:.3f} s ({busy / wall:.1%}), "
+            f"{sum(c for c, _ in prof.values())} kernel launches")
+        for name, (count, us) in sorted(prof.items(),
+                                        key=lambda kv: -kv[1][1])[:8]:
+            log(f"[lm-train]   {us / 1e3:9.3f} ms {count:6d}x  "
+                f"{_short(name)}")
+    del params, state, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = LM_TRAIN_SEQ * LM_TRAIN_BATCH
+    s = float(np.mean(secs[1:]))
+    flops = 6 * n_params * tokens / s           # model FLOP/s
+    lr_text = "3e-4, cosine (the default)" if lr is None else f"{lr:g}"
+    log(f"[lm-train] {optimizer} (lr {lr_text}): losses "
+        f"{[round(x, 6) for x in losses]} ({modes}); s per step "
+        f"{[round(x, 3) for x in secs]}: {s:.3f} s a step after the first, "
+        f"{tokens / s:.1f} tokens/s, model {flops / 1e12:.1f} TFLOP/s "
+        f"(6·N·tokens/s; {flops / PEAK_BF16_FLOP_PER_S:.1%} of the bf16 "
+        f"peak), peak memory {peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[lm-train] {optimizer}: losses {losses} not "
+                             "finite and falling")
+    return {"losses": losses, "s": s, "peak": peak, "params": n_params}
+
+
+def phase_lm_train(card: str) -> dict:
+    """Phase 16: the LM train step at h2o-danube-3-4b's full width."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeSpec, Stack
+    from repro_torch.models.inputs import make_batch
+    log(f"[lm-train] on {card}")
+    t0 = time.perf_counter()
+    full = registry.get_config(ARCH)
+    for depth in LM_TRAIN_DEPTHS:
+        (stack,) = full.stacks
+        cfg = dataclasses.replace(full, microbatch=LM_TRAIN_MICRO,
+                                  stacks=(Stack(stack.pattern, depth),))
+        log(f"[lm-train] {ARCH}: d_model {cfg.d_model}, {cfg.num_heads} "
+            f"heads ({cfg.num_kv_heads} kv), d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; depth "
+            f"{depth} of {full.num_layers}"
+            f"{'' if depth == full.num_layers else ' (cut: deeper OOMs)'}; "
+            f"global batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, "
+            f"microbatch {LM_TRAIN_MICRO} (the config's {full.microbatch} "
+            f"overridden), random weights from seed 0, one repeated batch")
+        try:
+            batch = make_batch(cfg, ShapeSpec("train", LM_TRAIN_SEQ,
+                                              LM_TRAIN_BATCH, "train"),
+                               seed=0, device=DEVICE)
+            adamw = _lm_train_run(cfg, batch, "adamw", None)
+            ada = _lm_train_run(cfg, batch, "adafactor", LM_ADAFACTOR_LR)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[lm-train] depth {depth} does not fit: "
+                f"{str(e).splitlines()[0]}")
+        batch = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError("[lm-train] no depth fits")
+    a, b = adamw["losses"][0], ada["losses"][0]
+    rel = abs(a - b) / abs(a)
+    log(f"[lm-train] step-1 loss of the seed-0 params: scan_of_grads "
+        f"{a!r}, grad_of_scan {b!r}, |Δ|/|loss| {rel:.3e} (limit "
+        f"{LM_ACCUM_RTOL:g}); {adamw['params']} params; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= LM_ACCUM_RTOL:
+        raise AssertionError(f"grad_of_scan vs scan_of_grads: {rel}")
+    return {"depth": depth, "adamw": adamw, "adafactor": ada}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2513,6 +2863,7 @@ def main() -> int:
                                                                whole)}
 
     # 4: f32, both layouts
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 4")
     requests = replay.requests
     sparse = serve("sparse", f32_services(replay, "sparse"), requests,
                    ["segment_aggregate"])
@@ -2560,10 +2911,12 @@ def main() -> int:
         f"{q_seg['preds'][n_small:].tolist()}")
 
     # 7: train on the card, then serve the trained checkpoint
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 7")
     tmp = tempfile.TemporaryDirectory()
     trained = phase_train(card, tmp.name)
 
     # 8-10: the LM zoo
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 8-11")
     flash = check_flash_attention()
     rows["flash_attention"], rows["flash_attention_f32"] = (
         flash["layer"], flash["f32-layer"])
@@ -2582,21 +2935,31 @@ def main() -> int:
     rows["ssd_scan"]["launches"] = launches["ssd_scan"]   # on no path: 0
 
     # 12-13: the model's consumers, then GAT and the LSTM reduction
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 12-13")
     with tmp:
         autotune = phase_autotune(card, trained, replay, tmp.name)
     gat_lstm = phase_gat_lstm(card, trained, replay, whole)
 
     # 14: the data flywheel
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 14")
     with tempfile.TemporaryDirectory() as fw_tmp:
         flywheel = phase_flywheel(card, fw_tmp)
 
-    # each path's own count: the serving runs of 4-5, then 12, 13 and 14
+    # 15-16: data-parallel cost-model training, the LM train step
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 15-16")
+    with tempfile.TemporaryDirectory() as ddp_tmp:
+        ddp = phase_ddp(card, trained, ddp_tmp)
+    del trained
+    phase_lm_train(card)
+
+    # each path's own count: the serving runs of 4-5, then 12-15
     for name, main_run in (("graph_aggregate", dense),
                            ("segment_aggregate", sparse),
                            ("segment_aggregate_i8", q_sparse)):
         rows[name]["launches"] = (main_run["launches"][name]
                                   + autotune[name] + gat_lstm[name]
-                                  + flywheel.get(name, 0))
+                                  + flywheel.get(name, 0)
+                                  + ddp.get(name, 0))
     kernels = []
     for name, source, replaces in (
             ("graph_aggregate", "graph_aggregate",

@@ -320,19 +320,34 @@ class GlobalBatchSampler:
     def batch_size(self) -> int:       # per-device sub-batch size
         return self.samplers[0].batch_size
 
+    @staticmethod
+    def _shared_spec(draws):
+        specs = [sparse_draw_spec(d[0]) for d in draws]
+        return batching.BucketSpec(
+            node_capacity=max(s.node_capacity for s in specs),
+            edge_capacity=max(s.edge_capacity for s in specs),
+            graph_capacity=max(s.graph_capacity for s in specs),
+            reduce_capacity=max(s.reduce_capacity for s in specs))
+
     def batch(self, step: int):
         draws = [s.draw(step) for s in self.samplers]
         spec = None
         if self.adjacency == "sparse":
-            specs = [sparse_draw_spec(d[0]) for d in draws]
-            spec = batching.BucketSpec(
-                node_capacity=max(s.node_capacity for s in specs),
-                edge_capacity=max(s.edge_capacity for s in specs),
-                graph_capacity=max(s.graph_capacity for s in specs),
-                reduce_capacity=max(s.reduce_capacity for s in specs))
+            spec = self._shared_spec(draws)
         parts = [s.encode_draw(d, spec=spec)
                  for s, d in zip(self.samplers, draws)]
         return _stack_batches(parts)
+
+    def shard(self, step: int, d: int):
+        """``batch(step)`` at index `d` of its leading axis, encoding only
+        shard d (a sparse shard still takes every shard's draw, for the
+        shared `BucketSpec`): what the rank of data index d trains on in
+        the port's data-parallel step."""
+        if self.adjacency != "sparse":
+            return self.samplers[d].encode_draw(self.samplers[d].draw(step))
+        draws = [s.draw(step) for s in self.samplers]
+        return self.samplers[d].encode_draw(draws[d],
+                                            spec=self._shared_spec(draws))
 
 
 def _stack_batches(parts):

@@ -95,21 +95,23 @@ def check_one_device(kernel: str, **tensors) -> None:
                                      for name, dev in devices.items()))
 
 
-def check_no_grad(kernel: str, **tensors) -> None:
+def check_no_grad(kernel: str, flag: str | None = None, **tensors) -> None:
     """Raises a RuntimeError when grad mode is on and one of `tensors`
     requires grad. The kernels have no backward (nor have the TPU
     kernels they replace): their outputs carry no `grad_fn`, so inside a
     differentiated forward every parameter upstream of them would get no
-    gradient, silently. The CPU route refuses too, so that a forward
-    behaves alike on both devices."""
+    gradient, silently. Every wrapper calls it on both routes, so that a
+    forward behaves alike on the CPU and on the card. `flag` names the
+    model option that routes through the kernel, for the message."""
     if not torch.is_grad_enabled():
         return
     needs = [name for name, t in tensors.items() if t.requires_grad]
     if needs:
+        fix = f"train with {flag}=False, or run" if flag else "run"
         raise RuntimeError(
             f"{kernel} has no backward, but {', '.join(needs)} require(s) "
-            "grad: train with use_pallas_aggregate=False, or run the "
-            "forward under torch.no_grad() / torch.inference_mode()")
+            f"grad: {fix} the forward under torch.no_grad() / "
+            "torch.inference_mode()")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,10 @@ the tensor-core kernel `csrc/flash_attention_sm90.cu` (wgmma and TMA;
 on the tensors' device, and CPU tensors run the plain PyTorch version
 `flash_attention_plain`; any other device raises, and a failed build or
 launch raises. `launches` counts every kernel launch (the f32 route's
-key/value split pre-pass and attention kernel count as one).
+key/value split pre-pass and attention kernel count as one). The kernels
+have no backward (nor has the TPU kernel), so both routes refuse q, k or
+v that require grad while grad mode is on (`build.check_no_grad`): a
+model with `use_pallas_attn` trains on neither device.
 
 The plain version repeats the TPU kernel's arithmetic, not the model's
 `chunked_attention`: the TPU kernel casts q to f32 and scales it there,
@@ -141,6 +144,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     >= 0. The kernel launches on the tensors' device. Returns [B,Sq,H,hd]
     in q's dtype."""
     B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
+    build.check_no_grad("flash_attention", "use_pallas_attn", q=q, k=k,
+                        v=v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

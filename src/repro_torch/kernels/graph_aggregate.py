@@ -74,7 +74,8 @@ def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     memory, allocated for the call."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
-    build.check_no_grad("graph_aggregate", adj=adj, x=x, w=w)
+    build.check_no_grad("graph_aggregate", "use_pallas_aggregate", adj=adj,
+                        x=x, w=w)
     if x.device.type == "cpu":
         return graph_aggregate_plain(adj, x, w, act=act, mean=mean)
     if x.device.type != "cuda":

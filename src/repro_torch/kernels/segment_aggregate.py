@@ -141,8 +141,8 @@ def segment_aggregate(x: torch.Tensor, w: torch.Tensor,
     [M, F] message scratch between them."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
-    build.check_no_grad("segment_aggregate", x=x, w=w, w_scale=w_scale,
-                        node_mask=node_mask)
+    build.check_no_grad("segment_aggregate", "use_pallas_aggregate", x=x,
+                        w=w, w_scale=w_scale, node_mask=node_mask)
     if x.device.type == "cpu":
         return segment_aggregate_plain(x, w, w_scale, edges.gather,
                                        edges.scatter, edges.edge_mask,

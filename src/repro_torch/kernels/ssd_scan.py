@@ -12,6 +12,8 @@ final state h_final [B, H, N, P], both f32.
 `ssd_scan` launches the hand-written CUDA kernel `csrc/ssd_scan.cu` for
 CUDA tensors and runs the plain PyTorch version `ssd_scan_plain` for CPU
 tensors; any other device raises. `launches` counts kernel launches.
+Neither route has a backward, and both refuse inputs that require grad
+while grad mode is on (`build.check_no_grad`).
 No model path calls it: the reference's Mamba2 mixer runs the same
 recurrence with `lax.scan` (`models/layers.py:ssd_mix_chunked`), so the
 port exposes it as the op.
@@ -62,6 +64,7 @@ def ssd_scan(S: torch.Tensor, d: torch.Tensor):
     kernel launches on it).
     Returns (h_before [B,nc,H,N,P], h_final [B,H,N,P]), f32."""
     B, nc, H, N, P = _check_shapes(S, d)
+    build.check_no_grad("ssd_scan", S=S, d=d)
     if S.device.type == "cpu":
         return ssd_scan_plain(S, d)
     if S.device.type != "cuda":

@@ -1,9 +1,9 @@
 """Training launcher (counterpart of `repro.launch.train`).
 
   cost-model — train the paper's learned performance model on a generated
-    corpus, on one device (the card by default): deterministic sampling,
-    atomic checkpoints in the JAX package's format, resume, and
-    --warm-start from another run's checkpoint (either package's):
+    corpus, on the card by default: deterministic sampling, atomic
+    checkpoints in the JAX package's format, resume, and --warm-start
+    from another run's checkpoint (either package's):
 
       PYTHONPATH=src python -m repro_torch.launch.train cost-model \
           --task tile --steps 2000 --ckpt-dir ckpts/tile
@@ -21,30 +21,37 @@
           --warm-start ckpts/tile --ckpt-dir ckpts/tile_ft \
           --steps 200 --warmup-steps 20
 
-    The same flags and defaults as the reference. Not ported yet, so they
-    exit with an error: --dp >= 1 and --compress-grads (data-parallel
-    training, ROADMAP Queue 1 item 5).
+    --dp N (--mp M) trains data-parallel over N·M ranks
+    (`CostModelTrainer`'s mesh step), --compress-grads with the int8
+    error-feedback all-reduce. The launcher starts the ranks itself
+    (start method `spawn`, a `file://` store in a temporary directory),
+    or, under `torchrun --nproc-per-node N·M`, each process joins as its
+    rank. The first line says the backend and the devices: NCCL when each
+    rank has a card of its own, gloo with the tensors left on the card
+    when ranks outnumber cards (two ranks on one card), gloo on the CPU.
+    Rank 0 alone prints, writes the checkpoints and the metrics:
 
-  lm — the LM train step is not ported yet (ROADMAP Queue 1 item 6); the
-    subcommand exits with an error.
+      PYTHONPATH=src python -m repro_torch.launch.train cost-model \
+          --dp 2 --compress-grads --steps 300 --ckpt-dir ckpts/tile_dp2
+
+  lm — the LM zoo's train step (`models.lm.train_step_fn`, AdamW or
+    Adafactor as the config says, microbatched) on random weights from
+    --seed and `make_batch`'s tokens, printing the parameter count and
+    each step's loss and seconds; the dense-attention archs
+    (h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b), at their full size or
+    with --smoke their smoke configs:
+
+      PYTHONPATH=src python -m repro_torch.launch.train lm \
+          --arch h2o-danube-3-4b --smoke --steps 5 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 
-def train_cost_model(args) -> None:
-    from repro_torch.core.features import fit_normalizer
-    from repro_torch.core.model import CostModelConfig
-    from repro_torch.core.simulator import TPUSimulator
-    from repro_torch.data.corpus import filter_by_programs, split_programs
-    from repro_torch.data.fusion_dataset import build_fusion_dataset
-    from repro_torch.data.sampler import BalancedSampler, TileBatchSampler
-    from repro_torch.data.synthetic import generate_corpus
-    from repro_torch.data.tile_dataset import build_tile_dataset
-    from repro_torch.training.optim import AdamWConfig
-    from repro_torch.training.trainer import CostModelTrainer, TrainerConfig
-
+def _check_cost_model_args(args) -> None:
     from repro_torch.core.device import resolve_device
     resolve_device(args.device)      # no card: fail before building data
     if args.num_hosts < 1:
@@ -55,10 +62,6 @@ def train_cost_model(args) -> None:
     if args.dp < 0 or args.mp < 1:
         raise SystemExit(f"--dp must be >= 0 and --mp >= 1, "
                          f"got dp={args.dp} mp={args.mp}")
-    if args.dp >= 1 or args.compress_grads:
-        raise SystemExit("--dp >= 1/--compress-grads: data-parallel "
-                         "training is not ported yet (ROADMAP Queue 1 "
-                         "item 5); use --dp 0")
     if args.deltas and not args.from_store:
         raise SystemExit("--deltas only applies to a stored corpus; "
                          "pass --from-store DIR")
@@ -74,6 +77,55 @@ def train_cost_model(args) -> None:
                 "behaviour (drop --warm-start), and fine-tuning in place "
                 "would overwrite the checkpoint being fine-tuned from")
 
+
+def train_cost_model(args) -> None:
+    _check_cost_model_args(args)
+    if args.dp < 1:
+        _train_cost_model(args)
+        return
+    import torch.distributed as dist
+    from repro_torch.sharding.mesh import init_distributed, pick_backend, \
+        rank_device, spawn_ranks
+    world = args.dp * args.mp
+    if "RANK" in os.environ:                 # under torchrun
+        backend = init_distributed(args.device)
+        try:
+            if dist.get_rank() == 0:
+                print(f"data-parallel: dp={args.dp} mp={args.mp}, {world} "
+                      f"ranks (torchrun), backend {backend}, rank 0 on "
+                      f"{rank_device(args.device, 0)}", flush=True)
+            _train_cost_model(args)
+        finally:
+            dist.destroy_process_group()
+        return
+    devices = ", ".join(str(rank_device(args.device, r))
+                        for r in range(world))
+    print(f"data-parallel: dp={args.dp} mp={args.mp}, {world} ranks "
+          f"spawned, backend {pick_backend(args.device, world)}, devices "
+          f"{devices}", flush=True)
+    spawn_ranks(_train_cost_model, (args,), world, device=args.device)
+
+
+def _train_cost_model(args) -> None:
+    """Build the data and train: the whole run on one device, or this
+    rank's part of it (the process group is up)."""
+    from repro_torch.core.features import fit_normalizer
+    from repro_torch.core.model import CostModelConfig
+    from repro_torch.core.simulator import TPUSimulator
+    from repro_torch.data.corpus import filter_by_programs, split_programs
+    from repro_torch.data.fusion_dataset import build_fusion_dataset
+    from repro_torch.data.sampler import BalancedSampler, TileBatchSampler
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.data.tile_dataset import build_tile_dataset
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.trainer import CostModelTrainer, TrainerConfig
+
+    rank0 = True
+    if args.dp >= 1:
+        import torch.distributed as dist
+        rank0 = dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+
     want_kind = "tile" if args.task.startswith("tile") else "fusion"
     if args.from_store:
         from repro_torch.data.store import StreamingCorpus
@@ -84,15 +136,15 @@ def train_cost_model(args) -> None:
                              f"{want_kind!r}")
         if args.deltas:
             corpus = corpus.with_deltas()
-            print(f"chained {corpus.num_deltas} delta shard set(s) "
-                  f"(chain {corpus.chain_hash[:12]}…)")
+            say(f"chained {corpus.num_deltas} delta shard set(s) "
+                f"(chain {corpus.chain_hash[:12]}…)")
         split = split_programs(corpus.programs(), method=args.split,
                                seed=args.seed)
         recs = corpus.select_programs(split["train"])
         ident = (corpus.chain_hash if args.deltas
                  else corpus.manifest_hash)
-        print(f"streaming {len(recs)}/{len(corpus)} records from "
-              f"{args.from_store} (manifest {ident[:12]}…)")
+        say(f"streaming {len(recs)}/{len(corpus)} records from "
+            f"{args.from_store} (manifest {ident[:12]}…)")
     else:
         sim = TPUSimulator()
         programs = generate_corpus(args.programs, seed=args.seed)
@@ -124,19 +176,47 @@ def train_cost_model(args) -> None:
                        ckpt_every=args.ckpt_every, log_every=args.log_every,
                        ckpt_dir=args.ckpt_dir,
                        metrics_path=args.metrics_path,
+                       compress_grads=args.compress_grads,
+                       dp=args.dp, mp=args.mp,
                        optim=AdamWConfig(lr=args.lr,
                                          warmup_steps=args.warmup_steps))
     trainer = CostModelTrainer(mc, tc, sampler, device=args.device)
     if args.warm_start:
         from_step = trainer.warm_start(args.warm_start,
                                        reset_opt_step=not args.keep_opt_step)
-        print(f"warm-started from {args.warm_start} step {from_step} "
-              f"(LR warmup {'continues' if args.keep_opt_step else 'restarts'}"
-              f", {args.warmup_steps} warmup steps)")
+        say(f"warm-started from {args.warm_start} step {from_step} "
+            f"(LR warmup {'continues' if args.keep_opt_step else 'restarts'}"
+            f", {args.warmup_steps} warmup steps)")
     res = trainer.run(resume=not args.no_resume)
-    print(f"done: step={res['step']} loss={res['loss']:.5f} "
-          f"wall={res['wall']:.1f}s interrupted={res['interrupted']} "
-          f"device={trainer.device}")
+    say(f"done: step={res['step']} loss={res['loss']:.5f} "
+        f"wall={res['wall']:.1f}s interrupted={res['interrupted']} "
+        f"device={trainer.device}", flush=True)
+
+
+def train_lm(args) -> None:
+    import torch
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models import lm, registry
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.inputs import make_batch
+
+    dev = resolve_device(args.device)
+    cfg = registry.get_smoke_config(args.arch) if args.smoke \
+        else registry.get_config(args.arch)
+    shape = ShapeSpec("cli", args.seq, args.batch, "train")
+    params = lm.init_params(torch.Generator(dev).manual_seed(args.seed), cfg,
+                            device=dev)
+    opt_init, _ = lm.make_optimizer(cfg)
+    opt = opt_init(params)
+    step = lm.train_step_fn(cfg)
+    print(f"arch={cfg.name} params={lm.param_count(params):,} "
+          f"device={dev}")
+    for i in range(args.steps):
+        batch = make_batch(cfg, shape, seed=args.seed + i, device=dev)
+        t0 = time.time()
+        params, opt, stats = step(params, opt, batch)
+        loss = float(stats["loss"])           # waits for the step
+        print(f"step {i}: loss={loss:.4f} ({time.time() - t0:.2f}s)")
 
 
 def main(argv=None) -> None:
@@ -183,11 +263,13 @@ def main(argv=None) -> None:
     cm.add_argument("--log-every", type=int, default=100)
     cm.add_argument("--metrics-path", default="")
     cm.add_argument("--compress-grads", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 5)")
+                    help="int8 error-feedback all-reduce of the gradients "
+                         "(dense batches at --dp 0)")
     cm.add_argument("--no-resume", action="store_true")
     cm.add_argument("--dp", type=int, default=0,
-                    help="data-parallel mesh size: only 0 (one device) "
-                         "runs here; >= 1 is ROADMAP Queue 1 item 5")
+                    help="data-parallel mesh size: 0 trains on one device "
+                         "with no process group; >= 1 trains over "
+                         "dp * mp ranks")
     cm.add_argument("--mp", type=int, default=1,
                     help="model mesh axis size (params replicated)")
     cm.add_argument("--num-hosts", type=int, default=1,
@@ -206,14 +288,15 @@ def main(argv=None) -> None:
     lm_p.add_argument("--seq", type=int, default=64)
     lm_p.add_argument("--batch", type=int, default=4)
     lm_p.add_argument("--seed", type=int, default=0)
+    lm_p.add_argument("--device", default="cuda",
+                      help="torch device (default: the card; 'cpu' runs "
+                           "the CPU path)")
 
     args = ap.parse_args(argv)
     if args.cmd == "cost-model":
         train_cost_model(args)
     else:
-        raise SystemExit("lm: the LM train step is not ported yet (ROADMAP "
-                         "Queue 1 item 6); repro_torch.launch.serve runs "
-                         "the ported LM forward")
+        train_lm(args)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ Port of `repro.models.inputs.make_batch` for token inputs. Its numbers
 come from numpy's `default_rng(seed)`, drawn in the same order and
 shapes as the reference's, so both packages get the same tokens from the
 same seed. The frame- and patch-embedding front ends wait with the
-mixers (ROADMAP.md Queue 1 item 8) and raise; the reference's
+mixers (ROADMAP.md Queue 1 item 6) and raise; the reference's
 ShapeDtypeStruct specs (`input_specs`) serve its dry-run only and are
-not ported (ROADMAP.md Queue 1 item 9).
+not ported (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ kernel (`repro_torch.kernels.flash_attention`); decode attends over a
 cache (a ring buffer for sliding-window layers) with `cache_attention`.
 The reference's sharding annotations (`constrain`) have no counterpart
 here and are dropped. The MoE, MLA, SSD and RG-LRU mixers are not ported
-yet (ROADMAP.md Queue 1 item 8).
+yet (ROADMAP.md Queue 1 item 6).
 
 Scalars that the reference casts to the activations' dtype before a
 multiply (`q * scale`, the embedding's `sqrt(d_model)`) are cast here

@@ -5,22 +5,30 @@ Parameters keep the reference's tree: `embed`, `final_norm`, `lm_head`
 (unless tied) and `stacks`, a list with one entry per stack, each a
 tuple with one dict per pattern element whose leaves carry a leading
 `[repeats]` axis (the reference's `vmap` over layer keys). The
-reference scans the stacked layers with `jax.lax.scan` and wraps them
-in `jax.checkpoint` (remat); the port loops over the layers in Python,
-and remat, which only trades memory for recomputation in training, has
-no counterpart in inference and is dropped. Caches are stacked the same
-way; decode updates them in place.
+reference scans the stacked layers with `jax.lax.scan`; the port loops
+over them in Python (`cfg.scan_layers` and `cfg.scan_microbatch`, the
+reference's switch between a scan and an unrolled loop, name the same
+loop here and change nothing). In a differentiated forward each layer is
+rematerialized, `torch.utils.checkpoint(..., use_reentrant=False)`,
+unless `cfg.remat == "none"`; the reference's `"dots"` policy (keep the
+products without batch dims, recompute the rest) has no torch
+counterpart that tells those products apart, so it takes full remat.
+Remat changes no number. Caches are stacked the same way; decode updates
+them in place.
 
 Entry points:
   init_params(generator, cfg, device)   — random params at the
                                           reference's init scales
   forward_trunk / logits_fn / loss_fn   — the train/score forward
+  make_optimizer(cfg) / train_step_fn(cfg)
+                                        — AdamW or Adafactor, the
+                                          microbatched train step
   prefill_step_fn(cfg, capacity)        — (params, batch) -> (logits, cache)
   decode_step_fn(cfg)                   — (params, cache, tokens, pos) -> ...
   init_cache(cfg, batch, capacity)      — empty decode caches
-The MoE, MLA, SSD and RG-LRU mixers, the audio and VLM front ends and
-the train step wait for later slices (ROADMAP.md Queue 1 item 8): they
-raise NotImplementedError.
+The MoE, MLA, SSD and RG-LRU mixers and the audio and VLM front ends
+wait for later slices (ROADMAP.md Queue 1 item 6): they raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,10 +36,15 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.training.adafactor import adafactor_init, \
+    adafactor_update_
+from repro_torch.training.optim import AdamWConfig, adamw_init, \
+    adamw_update_, divide, tree_leaves, tree_map, tree_unflatten
 
 _ATTN = ("attn", "swa")
 
@@ -47,7 +60,7 @@ def _parse(elem: str) -> tuple[str, str]:
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        "item 8)")
+        "item 6)")
 
 
 def _check_elem(elem: str) -> tuple[str, str]:
@@ -200,11 +213,17 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: [B,S,D] embeddings -> final hidden states."""
+    """x: [B,S,D] embeddings -> final hidden states. Under grad mode each
+    layer is rematerialized unless `cfg.remat == "none"`."""
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     for stack, elem_params in zip(cfg.stacks, params["stacks"]):
         for i in range(stack.repeats):
             for elem, p in zip(stack.pattern, elem_params):
-                x = block_apply_train(_index(p, i), cfg, elem, x)
+                if remat:
+                    x = checkpoint(block_apply_train, _index(p, i), cfg,
+                                   elem, x, use_reentrant=False)
+                else:
+                    x = block_apply_train(_index(p, i), cfg, elem, x)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -225,6 +244,90 @@ def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ----------------------------------------------------------------------------
+# Train step (microbatched gradient accumulation)
+# ----------------------------------------------------------------------------
+def make_optimizer(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
+    """(init, update) for `cfg.optimizer`: AdamW (the reference's default
+    `AdamWConfig(lr=3e-4, weight_decay=0.1, schedule="cosine")`) or
+    Adafactor at `optim_cfg.lr`. `update(params, grads, state)` writes
+    the new parameters and state in place (run it under no_grad) and
+    returns (params, state, stats)."""
+    optim_cfg = optim_cfg or AdamWConfig(lr=3e-4, weight_decay=0.1,
+                                         schedule="cosine")
+    if cfg.optimizer == "adafactor":
+        return (adafactor_init,
+                lambda p, g, s: adafactor_update_(p, g, s, lr=optim_cfg.lr))
+    return (adamw_init,
+            lambda p, g, s: adamw_update_(p, g, s, optim_cfg))
+
+
+def train_step_fn(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
+    """`train_step(params, opt_state, batch) -> (params, opt_state,
+    stats)`: the global batch split into microbatches of
+    min(cfg.microbatch, batch), their gradients accumulated, then one
+    optimizer update, in place. `cfg.grad_accum`:
+      "scan_of_grads" — one backward a microbatch, each gradient added
+        into an accumulator of `cfg.grad_accum_dtype` (f32 by default),
+        which is then divided by the microbatch count;
+      "grad_of_scan"  — one backward through the mean of the microbatch
+        losses, each microbatch's forward rematerialized whole.
+    `stats["loss"]` is the mean of the microbatch losses. The params'
+    leaves are made to require grad. With `cfg.use_pallas_attn` the
+    forward refuses to differentiate through the flash kernel, which has
+    no backward (`kernels.build.check_no_grad`)."""
+    _, update = make_optimizer(cfg, optim_cfg)
+    acc_dtype = (torch.bfloat16 if cfg.grad_accum_dtype == "bfloat16"
+                 else torch.float32)
+
+    def grads_of(loss, leaves):
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, gs)]
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        gb = tree_leaves(batch)[0].shape[0]
+        mb = min(cfg.microbatch, gb)
+        if gb % mb:
+            raise ValueError(f"global batch {gb} does not split into "
+                             f"microbatches of {mb}")
+        n_micro = gb // mb
+        micro = [tree_map(lambda x: x[i * mb:(i + 1) * mb], batch)
+                 for i in range(n_micro)]
+        dev = leaves[0].device
+        if cfg.grad_accum == "grad_of_scan":
+            s = torch.zeros((), dtype=torch.float32, device=dev)
+            for mbatch in micro:
+                s = s + checkpoint(lambda m: loss_fn(params, cfg, m),
+                                   mbatch, use_reentrant=False)
+            loss_mean = divide(s, n_micro)
+            grads = grads_of(loss_mean, leaves)
+            loss_sum = loss_mean.detach() * n_micro
+        else:
+            grads = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
+                     for p in leaves]
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            for mbatch in micro:
+                loss = loss_fn(params, cfg, mbatch)
+                with torch.no_grad():
+                    for acc, g in zip(grads, grads_of(loss, leaves)):
+                        acc.add_(g.to(acc_dtype))
+                loss_sum = loss_sum + loss.detach()
+            for acc in grads:
+                acc.div_(torch.full((), n_micro, dtype=acc.dtype,
+                                    device=acc.device))
+        with torch.no_grad():
+            params, opt_state, stats = update(
+                params, tree_unflatten(params, grads), opt_state)
+        stats["loss"] = divide(loss_sum, n_micro)
+        return params, opt_state, stats
+
+    return train_step
 
 
 # ----------------------------------------------------------------------------

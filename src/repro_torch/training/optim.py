@@ -9,6 +9,14 @@ nested dicts/lists of tensors, the optimizer state is
 `{"m": tree, "v": tree, "step": int32 scalar}` keyed like the parameter
 tree, so it checkpoints as the reference's does. The step counter and
 the learning rate live on the CPU (no device round trip per step).
+
+`adamw_update` is pure, as the reference's, and the tests' reference
+for `adamw_update_`, the twin that the trainers run: JAX donates the old
+buffers to the new ones, PyTorch cannot, so it writes the parameters and
+moments in place, one leaf at a time and a stacked leaf one layer at a
+time, with the same operations in the same order — bit for bit the pure
+update's result (`tests/test_torch_lm_train.py`). At the LM zoo's full
+width the pure update would not fit on the card beside the moments.
 """
 from __future__ import annotations
 
@@ -54,6 +62,40 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_up_to(like, tree) -> list:
+    """The nodes of `tree` that sit where `like` has its leaves, in
+    `tree_leaves(like)`'s order (a node may itself be a dict, as an
+    optimizer's per-leaf state is)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like)
+                for x in tree_leaves_up_to(like[k], tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for i, v in enumerate(like)
+                for x in tree_leaves_up_to(v, tree[i])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """`like`'s structure with `leaves` (in `tree_leaves(like)`'s order)
+    in place of its leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(like)
+
+
+def divide(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n as a true division, as the reference's: given a CPU scalar,
+    a CUDA kernel multiplies by its reciprocal, which rounds otherwise
+    (n = 3, say)."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
 def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
@@ -82,11 +124,17 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    gn = global_norm(tree)
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
     # a tensor numerator: `float / tensor` would take a reciprocal first
-    scale = torch.clamp(_f32(max_norm) / torch.clamp(gn, min=1e-12), max=1.0)
-    return tree_map(lambda x: x * scale, tree), gn
+    return torch.clamp(_f32(max_norm) / torch.clamp(gn, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """Every leaf times min(1, max_norm / global norm), in float32: as in
+    the reference, where a bf16 leaf times the f32 scale promotes."""
+    gn = global_norm(tree)
+    scale = _clip_scale(gn, max_norm)
+    return tree_map(lambda x: x.to(torch.float32) * scale, tree), gn
 
 
 def adamw_init(params) -> dict:
@@ -126,3 +174,46 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     new_params = tree_map(upd, params, m, v)
     return new_params, {"m": m, "v": v, "step": step}, \
         {"lr": lr, "grad_norm": gn}
+
+
+def _layers(t: torch.Tensor) -> list[torch.Tensor]:
+    """A stacked leaf ([layers, ...], ndim >= 3) as views of one layer
+    each; any other leaf whole. Elementwise work on the views gives the
+    whole leaf's bits with a layer's worth of temporaries."""
+    return list(t) if t.ndim >= 3 else [t]
+
+
+def adamw_update_(params, grads, state, cfg: AdamWConfig):
+    """`adamw_update` in place: writes the new parameters into `params`
+    and the new moments into `state["m"]`, `state["v"]`, and returns
+    (params, state, stats) with the same bits as the pure update. Run it
+    under `torch.no_grad()`. `grads` is read, not written."""
+    step = state["step"] + 1
+    lr = schedule_lr(cfg, step)
+    gn = global_norm(grads)
+    scale = (_clip_scale(gn, cfg.grad_clip_norm)
+             if cfg.grad_clip_norm is not None else None)
+    b1, b2 = cfg.b1, cfg.b2
+    step_f = step.to(torch.float32)
+    mhat_scale = 1.0 / (1.0 - torch.pow(_f32(b1), step_f))
+    vhat_scale = 1.0 / (1.0 - torch.pow(_f32(b2), step_f))
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(state["m"]), tree_leaves(state["v"])):
+        for p, g, m, v in zip(*map(_layers, leaf)):
+            g = g.to(torch.float32)
+            if scale is not None:
+                g = g * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+            del g
+            u = m * mhat_scale
+            u.div_(torch.sqrt(v * vhat_scale).add_(cfg.eps))
+            if cfg.weight_decay > 0:
+                u.add_(cfg.weight_decay * p.to(torch.float32))
+            u.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(u)
+            else:
+                p.copy_(p.to(torch.float32).sub_(u))
+    state["step"] = step
+    return params, state, {"lr": lr, "grad_norm": gn}

@@ -850,3 +850,32 @@ def test_mc_acquisition_on_the_card_with_and_without_the_kernels(layout,
     for i in range(2):
         assert float(np.abs(got[True][i] - got[False][i]).max()) <= tol
     assert float(got[True][1].max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_and_ssd_refuse_grad_on_the_card(dtype):
+    """The kernels have no backward: on the card, as on the CPU, inputs
+    that require grad are refused while grad mode is on, and the kernel
+    launches under no_grad."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, 128, 4, 64, device="cuda", generator=gen,
+                    dtype=dtype).requires_grad_(True)
+    kv = torch.randn(1, 128, 2, 64, device="cuda", generator=gen,
+                     dtype=dtype)
+    before = fa.launches
+    with pytest.raises(RuntimeError, match="use_pallas_attn=False"):
+        fa.flash_attention(q, kv, kv)
+    assert fa.launches == before
+    with torch.no_grad():
+        assert fa.flash_attention(q, kv, kv).shape == q.shape
+    assert fa.launches == before + 1
+    S = torch.randn(1, 2, 1, 3, 4, device="cuda", generator=gen)
+    d = torch.rand(1, 2, 1, device="cuda", generator=gen).requires_grad_()
+    with pytest.raises(RuntimeError, match="ssd_scan has no backward"):
+        ss.ssd_scan(S, d)
+    with torch.no_grad():
+        assert ss.ssd_scan(S, d)[1].shape == (1, 1, 3, 4)

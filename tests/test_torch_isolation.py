@@ -78,6 +78,53 @@ print(json.dumps({{"mods": mods, "bad": bad}}))
     assert out["bad"] == []
 
 
+def test_training_modules_load_no_jax_and_no_repro():
+    """The data-parallel and LM-training modules, on their own."""
+    mods = ["repro_torch.sharding", "repro_torch.sharding.mesh",
+            "repro_torch.training.compression",
+            "repro_torch.training.adafactor",
+            "repro_torch.training.pipeline",
+            "repro_torch.training.trainer", "repro_torch.models.lm",
+            "repro_torch.launch.train"]
+    code = f"""
+import importlib, json, sys
+for m in {mods!r}:
+    importlib.import_module(m)
+from repro_torch.models.lm import make_optimizer, train_step_fn
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps(bad))
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_training_entry_points_refuse_to_run_without_a_card():
+    code = """
+import torch
+from repro_torch.launch.train import main
+from repro_torch.sharding import init_distributed, make_train_mesh, \
+    spawn_ranks
+assert not torch.cuda.is_available()
+for call in (lambda: main(["lm", "--arch", "yi-9b", "--smoke"]),
+             lambda: main(["cost-model", "--dp", "2"]),
+             lambda: init_distributed(rank=0, world_size=1,
+                                      init_method="file:///nonexistent"),
+             lambda: spawn_ranks(print, (), 2)):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise SystemExit("ran without a card")
+print("refused")
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "refused"
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_neither_jax_nor_repro(path):

@@ -671,9 +671,12 @@ REJECTED = [
      "no backward"),
     (dict(use_pallas_aggregate=True, adjacency="segmented"), {}, ValueError,
      "no backward"),
-    ({}, dict(dp=1), NotImplementedError, "item 5"),
-    ({}, dict(compress_grads=True), NotImplementedError, "item 5"),
-    ({}, dict(dp=2), NotImplementedError, "item 5"),
+    # the mesh step needs a process group of dp·mp ranks
+    ({}, dict(dp=1), ValueError, "none is initialised"),
+    # int8 compression at dp=0 shards a leading batch dim: dense only
+    (dict(adjacency="sparse"), dict(compress_grads=True), ValueError,
+     "compress_grads=True needs a leading batch dim"),
+    ({}, dict(dp=2), ValueError, "needs a process group of 2 ranks"),
     ({}, dict(dp=-1), ValueError, "dp must be"),
 ]
 
@@ -832,13 +835,12 @@ def test_cli_trains_and_writes_a_checkpoint(tmp_path, capsys):
     assert PC.list_steps(str(tmp_path / "ft")) == [2]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["cost-model", "--dp", "1"], "item 5"),
-    (["cost-model", "--compress-grads"], "item 5"),
-    (["lm", "--arch", "yi-9b"], "item 6")])
-def test_cli_refuses_unported(argv, match):
+@pytest.mark.parametrize("argv,exc,match", [
+    (["cost-model", "--dp", "-1"], SystemExit, "--dp must be >= 0"),
+    (["cost-model", "--dp", "2", "--mp", "0"], SystemExit, "--mp >= 1"),
+    (["lm", "--arch", "granite-moe-3b-a800m", "--smoke"],
+     NotImplementedError, "item 6")])
+def test_cli_refuses_unported(argv, exc, match):
     from repro_torch.launch.train import main
-    if argv[0] == "cost-model":
-        argv = argv + ["--device", "cpu"]
-    with pytest.raises(SystemExit, match=match):
-        main(argv)
+    with pytest.raises(exc, match=match):
+        main(argv + ["--device", "cpu"])
