@@ -31,6 +31,21 @@
 // With the split P carries 16 bits into the product, and the output's
 // one bf16 rounding (at most half the limit) is what is left.
 //
+// Why P.V starts from zero in every key tile. The tensor cores add each
+// k16 step's products into the f32 accumulator rounding toward zero, so
+// an accumulator carried across the whole row (O += P.V tile after tile)
+// loses up to an ulp of |O| a step, all of one sign: 16 steps a tile, up
+// to 64 tiles at S = 8192. Where the output cancels to near 0 (a peaked
+// softmax over large v), that is an absolute error of ~2e-5, twice the
+// check's 1e-5 floor: llava-next-34b's layer 0 at S = 8192 failed the
+// element-wise check at 11 of 117 M elements, all in rows past 4800, on
+// an H100. So each tile's P.V goes into a fresh accumulator, and O =
+// O * alpha + O_t is folded in f32 on the CUDA cores (the emulation with
+// truncation, tests/test_torch_zoo_kernels.py, shows both). O_t is taken
+// one 64-column half of hd at a time (m64n64k16, 32 registers): a whole
+// 128-column O_t beside O and the split P needs more registers than a
+// thread of this 288-thread block has, and spilled.
+//
 // What bounds it on an H100: at h2o-danube-3-4b's layer shape (B = 2,
 // S = 8192, H = 32, KH = 8, hd = 120, causal, window 4096) the unmasked
 // (q, k) pairs are 25.2 M per (b, h), 4 hd FLOPs each: 7.7e11 FLOPs a
@@ -57,9 +72,11 @@
 //   mask, online softmax in f32 in the log2 domain (exp2), O *= alpha;
 //                  only tiles that cross Sk, the diagonal or the window's
 //                  lower edge pay for the position compare
-//   O += P_hi V + P_lo V   16 x wgmma m64n128k16, P from registers (the S
+//   O_t = P_hi V + P_lo V  per 64-column half of hd: 16 x wgmma
+//                  m64n64k16 from zero, P from registers (the S
 //                  accumulator fragment is the A fragment of each k16
-//                  slice), V MN-major (wgmma's transpose bit for B)
+//                  slice), V MN-major (wgmma's transpose bit for B); then
+//                  O = O * alpha + O_t on the CUDA cores
 // Key tiles wholly outside the causal window are skipped (the TPU kernel
 // only masks them), which is exact for every row that sees a key; the
 // wrapper checks that each row does. Epilogue: O / max(l, 1e-30) ->
@@ -69,8 +86,11 @@
 // 128, kStages = 2: 32 KB of Q + 2 x (32 KB K + 32 KB V) = 160 KB of
 // dynamic shared memory (+ 1 KB for 1024-byte alignment and barriers),
 // one block per SM (4096 blocks at the layer shape), 168 registers a
-// thread and no spills (`-Xptxas -v`, CUDA 12.9; __launch_bounds__(288,
-// 1) allows 224).
+// thread, the most a 9-warp block gets (three warps share an SM
+// quarter's 16 K registers), with 160 bytes of spill stores since the
+// per-tile O_t (`-Xptxas -v`, CUDA 12.8): 3-5 % slower than the kernel
+// that carried O across the row, a 128-column O_t 16 % (H100 80GB HBM3,
+// 700 W, the layer shapes of chip_smoke.py).
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it
 // is looked up with cudaGetDriverEntryPoint (ByVersion from CUDA 12.5),
@@ -165,9 +185,10 @@ __device__ __forceinline__ void wg_wait0() {
 }
 // keeps the compiler from moving accesses of the accumulators across the
 // asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define WG_D8(i)                                                        \
@@ -194,16 +215,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[64x128] += A[64x16] B[16x128]: A in registers, B MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[64],
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_R32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31}"
+
+// d[64x64] (+)= A[64x16] B[16x64]: A in registers, B MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -381,10 +409,6 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         s[4 * j + 3] = exp2f(s[4 * j + 3] - mn1);
         sum0 += s[4 * j] + s[4 * j + 1];
         sum1 += s[4 * j + 2] + s[4 * j + 3];
-        o[4 * j] *= a0;
-        o[4 * j + 1] *= a0;
-        o[4 * j + 2] *= a1;
-        o[4 * j + 3] *= a1;
       }
       l0 = l0 * a0 + sum0;        // this thread's columns; summed at the end
       l1 = l1 * a1 + sum1;
@@ -398,18 +422,33 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           split2(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1], p_hi[kk][f],
                  p_lo[kk][f]);
 
-      // O += P_hi V + P_lo V over 8 k16 slices of 16 keys
-      fence_regs(o);
-      wg_fence();
+      // per 64-column half c of hd (V's column box c): O_t = P_hi V +
+      // P_lo V over 8 k16 slices of 16 keys, from zero; then O = O *
+      // alpha + O_t in f32 (O's fragment: columns 64 c + 8 j + ...)
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = desc(v_s + kk * 16 * 128, kChunkBytes, 1024);
-        wgmma_rs_t(o, p_hi[kk], dv);
-        wgmma_rs_t(o, p_lo[kk], dv);
+      for (int c = 0; c < 2; ++c) {
+        float t[32];
+        fence_regs(t);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t dv =
+              desc(v_s + c * kChunkBytes + kk * 16 * 128, kChunkBytes, 1024);
+          wgmma_rs_t(t, p_hi[kk], dv, kk > 0);
+          wgmma_rs_t(t, p_lo[kk], dv, 1);
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs(t);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float* oj = o + 32 * c + 4 * j;
+          oj[0] = fmaf(oj[0], a0, t[4 * j]);
+          oj[1] = fmaf(oj[1], a0, t[4 * j + 1]);
+          oj[2] = fmaf(oj[2], a1, t[4 * j + 2]);
+          oj[3] = fmaf(oj[3], a1, t[4 * j + 3]);
+        }
       }
-      wg_commit();
-      wg_wait0();
-      fence_regs(o);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * st);

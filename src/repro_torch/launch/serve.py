@@ -1,8 +1,14 @@
 """Serving launcher: batched prefill + decode loop for the LM zoo.
 
 Port of `repro.launch.serve`, for the architectures whose layers the
-port has (dense `attn`/`swa` + `mlp`: h2o-danube-3-4b, yi-9b, yi-34b,
-qwen3-14b; the others raise NotImplementedError).
+port has and whose prompts are tokens: h2o-danube-3-4b, yi-9b, yi-34b,
+qwen3-14b, granite-moe-3b-a800m and mamba2-2.7b. The loop feeds prompts
+as `{"tokens"}` alone, as the reference's does; musicgen-large (frame
+embeddings) and llava-next-34b (a patch prefix) need more, and are
+refused with a ValueError that names the missing input (the reference
+fails there with a KeyError). recurrentgemma-9b and deepseek-v3-671b
+wait for their mixers (ROADMAP.md Queue 1 items 6c, 6e) and raise
+NotImplementedError.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
       --smoke --device cpu --batch 4 --prompt-len 32 --decode-steps 16
@@ -54,6 +60,16 @@ def prompts(cfg, batch: int, prompt_len: int, seed: int,
                                          (batch, prompt_len))).to(device)
 
 
+def check_token_prompts(cfg) -> None:
+    """Raise ValueError for an arch whose prefill needs more than tokens."""
+    need = ("embeddings (frame embeddings)" if cfg.embed_inputs
+            else "patch_embeds (the image's patch prefix)"
+            if cfg.num_patch_tokens else None)
+    if need:
+        raise ValueError(f"{cfg.name}: prefill needs batch[{need}], and the "
+                         "serve loop feeds token prompts only")
+
+
 @torch.inference_mode()
 def serve_loop(params, cfg, tokens: torch.Tensor, *, decode_steps: int,
                temperature: float = 0.0,
@@ -64,6 +80,7 @@ def serve_loop(params, cfg, tokens: torch.Tensor, *, decode_steps: int,
     device synchronised at the end of each)."""
     from repro_torch.models import lm
 
+    check_token_prompts(cfg)
     B, P = tokens.shape
     capacity = P + decode_steps
     prefill = lm.prefill_step_fn(cfg, capacity=capacity)
@@ -118,6 +135,7 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     cfg = registry.get_smoke_config(args.arch) if args.size == "smoke" \
         else registry.get_config(args.arch)
+    check_token_prompts(cfg)
     params = lm.init_params(torch.Generator(dev).manual_seed(args.seed),
                             cfg, device=dev)
     tokens = prompts(cfg, args.batch, args.prompt_len, args.seed, dev)

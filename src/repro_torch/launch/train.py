@@ -36,10 +36,12 @@
 
   lm — the LM zoo's train step (`models.lm.train_step_fn`, AdamW or
     Adafactor as the config says, microbatched) on random weights from
-    --seed and `make_batch`'s tokens, printing the parameter count and
-    each step's loss and seconds; the dense-attention archs
-    (h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b), at their full size or
-    with --smoke their smoke configs:
+    --seed and `make_batch`'s inputs (tokens, musicgen's frame
+    embeddings and labels, llava's tokens and patch prefix, which --seq
+    counts), printing the parameter count and each step's loss and
+    seconds; h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b,
+    granite-moe-3b-a800m, musicgen-large, llava-next-34b and mamba2-2.7b,
+    at their full size or with --smoke their smoke configs:
 
       PYTHONPATH=src python -m repro_torch.launch.train lm \
           --arch h2o-danube-3-4b --smoke --steps 5 --device cpu

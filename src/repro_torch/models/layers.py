@@ -1,15 +1,21 @@
-"""Dense layers of the LM zoo: RMSNorm, rotary embedding, GQA attention
-(full-causal or sliding-window, optional qk-norm) and the SwiGLU MLP.
+"""Layers of the LM zoo: RMSNorm, rotary embedding, GQA attention
+(full-causal or sliding-window, optional qk-norm), the SwiGLU MLP, the
+token-choice MoE ffn and the Mamba2 SSD mixer.
 
-Port of the dense part of `repro.models.layers`. Parameters are dicts of
-tensors laid out as the reference's pytrees. Train and prefill attend
+Port of `repro.models.layers` but for MLA and RG-LRU, which wait for
+later slices (ROADMAP.md Queue 1 items 6c and 6e). Parameters are dicts
+of tensors laid out as the reference's pytrees. Train and prefill attend
 with `chunked_attention` (an online softmax over KV blocks) or, when
 `cfg.use_pallas_attn` is set, with the hand-written flash-attention
 kernel (`repro_torch.kernels.flash_attention`); decode attends over a
 cache (a ring buffer for sliding-window layers) with `cache_attention`.
-The reference's sharding annotations (`constrain`) have no counterpart
-here and are dropped. The MoE, MLA, SSD and RG-LRU mixers are not ported
-yet (ROADMAP.md Queue 1 item 6).
+The MoE ffn dispatches by a stable sort into per-expert capacity slots
+and drops what overflows, as the reference does; its expert products are
+batched matmuls. The SSD mixer takes the reference's chunked algorithm,
+its inter-chunk `lax.scan` a Python loop over chunks; like the
+reference it does not call the `ssd_scan` kernel. The reference's
+sharding annotations (`constrain`) have no counterpart here and are
+dropped.
 
 Scalars that the reference casts to the activations' dtype before a
 multiply (`q * scale`, the embedding's `sqrt(d_model)`) are cast here
@@ -20,9 +26,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 
 NEG_INF = -1e30
 
@@ -52,13 +59,15 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def _winit(generator, shape, dtype, scale: float = 0.02,
            device="cpu") -> torch.Tensor:
     """N(0, 1) · scale drawn in f32 from `generator` (on its own device)
-    and cast to `dtype` on `device`; shape-only on the meta device."""
+    and cast to `dtype` on `device`; shape-only on the meta device. The
+    scale multiplies in place: a stacked leaf then needs its f32 draw
+    and its cast beside it, not a second f32 copy."""
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * scale).to(device=device, dtype=dtype)
+    return w.mul_(scale).to(device=device, dtype=dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -286,7 +295,342 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None,
     }
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)                         # as jax.nn.silu
+
+
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    g = x @ params["w_gate"]
-    h = g * torch.sigmoid(g) * (x @ params["w_up"])     # silu, as jax.nn's
+    h = _silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# ----------------------------------------------------------------------------
+# Token-choice MoE with sort-based dispatch
+# ----------------------------------------------------------------------------
+def moe_init(generator, cfg: ModelConfig, lead: tuple = (),
+             device="cpu") -> dict:
+    """One MoE ffn's weights: an f32 router in every dtype, the experts'
+    stacked SwiGLU weights, `e_bias` for sigmoid routing and the shared
+    experts' MLP where the config has them."""
+    mc = cfg.moe
+    D, E, Fe = cfg.d_model, mc.num_experts, mc.d_ff_expert
+    dt = _dt(cfg)
+    p = {
+        "router": _winit(generator, lead + (D, E), torch.float32,
+                         scale=0.006, device=device),
+        "w_gate": _winit(generator, lead + (E, D, Fe), dt, device=device),
+        "w_up": _winit(generator, lead + (E, D, Fe), dt, device=device),
+        "w_down": _winit(generator, lead + (E, Fe, D), dt,
+                         scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1)),
+                         device=device),
+    }
+    if mc.router_scale:                      # deepseek aux-free bias routing
+        p["e_bias"] = torch.zeros(lead + (E,), dtype=torch.float32,
+                                  device=device)
+    if mc.num_shared_experts:
+        p["shared"] = mlp_init(generator, cfg,
+                               mc.d_ff_shared * mc.num_shared_experts,
+                               lead=lead, device=device)
+    return p
+
+
+def _route(params: dict, mc: MoEConfig, xf: torch.Tensor):
+    """xf: [T, D] -> (gates [T,K], ids [T,K]), gates summing to 1. The
+    router is f32 in every dtype."""
+    logits = xf.float() @ params["router"]
+    if mc.router_scale:
+        scores = torch.sigmoid(logits)
+        sel = scores + params["e_bias"][None, :]
+        _, ids = torch.topk(sel, mc.top_k, dim=-1)
+        gates = torch.gather(scores, -1, ids)
+    else:
+        gates, ids = torch.topk(torch.softmax(logits, dim=-1), mc.top_k,
+                                dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, ids
+
+
+def moe_capacity(tokens: int, mc: MoEConfig) -> int:
+    """Slots per expert: ceil(T·K/E·cf), rounded up to a multiple of 8,
+    at least 8 (Python arithmetic, as the reference's)."""
+    cap = int(math.ceil(tokens * mc.top_k / mc.num_experts
+                        * mc.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_dispatch(ids: torch.Tensor, num_experts: int, cap: int):
+    """ids [T, K] -> (sort_idx, slot_sorted, keep) over the T·K (token,
+    choice) pairs: a stable sort by expert keeps each expert's pairs in
+    token order; pair j of the sort goes to slot expert·cap + its rank
+    within its expert, or, past `cap`, to the sentinel slot E·cap and is
+    dropped (`keep` False)."""
+    flat_ids = ids.reshape(-1)
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[sort_idx]
+    counts = torch.bincount(flat_ids, minlength=num_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(flat_ids.numel(),
+                              device=ids.device) - starts[sorted_ids]
+    keep = pos_sorted < cap
+    slot_sorted = torch.where(keep, sorted_ids * cap + pos_sorted,
+                              num_experts * cap)
+    return sort_idx, slot_sorted, keep
+
+
+def moe_dropped(params: dict, cfg: ModelConfig, x: torch.Tensor) -> int:
+    """How many (token, choice) pairs of `x` [B,S,D] `moe_apply` drops at
+    capacity."""
+    mc = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    _, ids = _route(params, mc, xf)
+    _, _, keep = moe_dispatch(ids, mc.num_experts,
+                              moe_capacity(xf.shape[0], mc))
+    return int((~keep).sum())
+
+
+def moe_apply(params: dict, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,D]. Sort-based dispatch with per-expert capacity + drop.
+    The scatters write each slot once but the sentinel E·cap, which the
+    dropped pairs share and which is thrown away, so their order under
+    duplicate indices never matters."""
+    mc = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    K, E = mc.top_k, mc.num_experts
+    xf = x.reshape(T, D)
+    gates, ids = _route(params, mc, xf)
+    cap = moe_capacity(T, mc)
+    sort_idx, slot_sorted, keep = moe_dispatch(ids, E, cap)
+
+    tok_sorted = sort_idx // K
+    dispatch_tok = torch.zeros(E * cap + 1, dtype=torch.long,
+                               device=x.device)
+    dispatch_tok[slot_sorted] = tok_sorted
+    slot_used = torch.zeros(E * cap + 1, dtype=torch.bool, device=x.device)
+    slot_used[slot_sorted] = keep
+    xe = xf[dispatch_tok[:E * cap]] * slot_used[:E * cap, None]
+    xe = xe.reshape(E, cap, D)
+
+    h = _silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe,
+                                                           params["w_up"])
+    ye = torch.bmm(h, params["w_down"])
+    ye_flat = torch.cat([ye.reshape(E * cap, D), ye.new_zeros((1, D))])
+
+    # route outputs back to (token, k) order
+    slot_of_flat = torch.empty(T * K, dtype=torch.long, device=x.device)
+    slot_of_flat[sort_idx] = slot_sorted
+    yk = ye_flat[slot_of_flat].reshape(T, K, D)
+    out = torch.sum(yk * gates[..., None].to(yk.dtype), dim=1)
+
+    if mc.num_shared_experts:
+        out = out + mlp_apply(params["shared"], xf)
+    return out.reshape(B, S, D).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# SSD — Mamba2 mixer
+# ----------------------------------------------------------------------------
+def ssd_dims(cfg: ModelConfig):
+    sc = cfg.ssm
+    d_inner = sc.expand * cfg.d_model
+    H = d_inner // sc.head_dim
+    return d_inner, H, sc.head_dim, sc.d_state
+
+
+def ssd_init(generator, cfg: ModelConfig, lead: tuple = (),
+             device="cpu") -> dict:
+    sc = cfg.ssm
+    D = cfg.d_model
+    d_inner, H, P, N = ssd_dims(cfg)
+    conv_dim = d_inner + 2 * sc.ngroups * N
+    in_dim = 2 * d_inner + 2 * sc.ngroups * N + H
+    dt = _dt(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_in": _winit(generator, lead + (D, in_dim), dt, device=device),
+        "conv_w": _winit(generator, lead + (sc.conv_width, conv_dim),
+                         torch.float32, 0.2, device=device),
+        "conv_b": torch.zeros(lead + (conv_dim,), **f32),
+        "A_log": torch.zeros(lead + (H,), **f32),         # a = -exp(A_log)
+        "dt_bias": torch.full(lead + (H,), math.log(math.e - 1), **f32),
+        "D_skip": torch.ones(lead + (H,), **f32),
+        "y_norm": _norm_init(d_inner, lead, device),
+        "w_out": _winit(generator, lead + (d_inner, D), dt,
+                        scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1)),
+                        device=device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None = None):
+    """Depthwise causal conv. x: [B,S,C]; w: [W,C] (f32). Returns (y in
+    x's dtype, new_state): the products and sums are f32 (bf16 x f32
+    promotes, as in JAX); the state is the last W-1 inputs, in x's
+    dtype."""
+    W = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+            for i in range(W))
+    y = y + b[None, None, :]
+    new_state = xp[:, -(W - 1):, :] if W > 1 else None
+    return y.to(x.dtype), new_state
+
+
+def _ssd_split(cfg: ModelConfig, proj: torch.Tensor):
+    """proj [..., in_dim] -> (z, xs, Bm, Cm, dt_raw)."""
+    d_inner, H, _, N = ssd_dims(cfg)
+    g = cfg.ssm.ngroups
+    return torch.split(proj, [d_inner, d_inner, g * N, g * N, H], dim=-1)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))   # as jax.nn.softplus
+
+
+def ssd_mix_chunked(cfg: ModelConfig, X, Bm, Cm, dlog, h0=None):
+    """The SSD chunked algorithm. X: [B,S,H,P] inputs (already
+    dt-scaled); Bm/Cm: [B,S,N] (ngroups=1); dlog: [B,S,H] per-step
+    log-decay (<= 0). Returns (Y [B,S,H,P], final_state [B,H,N,P]), f32.
+    The inter-chunk recurrence is a loop over chunks that hands each
+    chunk the state before it (the reference's `lax.scan`)."""
+    B_, S, H, P = X.shape
+    N = Bm.shape[-1]
+    L = min(cfg.ssm.chunk, S)
+    nc = S // L
+    if nc * L != S:
+        raise ValueError(f"ssd_mix_chunked: S={S} is not a multiple of "
+                         f"the chunk {L}")
+    Xc = X.reshape(B_, nc, L, H, P).float()
+    Bc = Bm.reshape(B_, nc, L, N).float()
+    Cc = Cm.reshape(B_, nc, L, N).float()
+    cum = torch.cumsum(dlog.reshape(B_, nc, L, H), dim=2)     # [B,nc,L,H]
+
+    # intra-chunk (masked decay attention)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,L,L,H]
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=X.device))
+    dec = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    del seg
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    att = scores[..., None] * dec                             # [B,nc,L,L,H]
+    del dec
+    Y_intra = torch.einsum("bclsh,bcshp->bclhp", att, Xc)
+    del att
+
+    # per-chunk input state contribution
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # [B,nc,L,H]
+    S_state = torch.einsum("bcln,bclh,bclhp->bchnp", Bc, decay_to_end,
+                           Xc)                                # [B,nc,H,N,P]
+
+    # inter-chunk recurrence
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # [B,nc,H]
+    h = (torch.zeros((B_, H, N, P), dtype=torch.float32, device=X.device)
+         if h0 is None else h0.float())
+    before = []
+    for c in range(nc):
+        before.append(h)                                      # state BEFORE
+        h = h * chunk_decay[:, c, :, None, None] + S_state[:, c]
+    h_before = torch.stack(before, dim=1)                     # [B,nc,H,N,P]
+
+    Y_inter = torch.einsum("bcln,bclh,bchnp->bclhp", Cc, torch.exp(cum),
+                           h_before)
+    Y = (Y_intra + Y_inter).reshape(B_, S, H, P)
+    return Y, h
+
+
+def _ssd_conv_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     conv_state):
+    """The shared front of train and decode: in-projection, causal conv
+    and its silu, dt. Returns (z, xs, Bm, Cm, dt f32, new conv state)."""
+    d_inner, _, _, N = ssd_dims(cfg)
+    gN = cfg.ssm.ngroups * N
+    z, xs, Bm, Cm, dt_raw = _ssd_split(cfg, x @ params["w_in"])
+    conv_out, new_conv = _causal_conv(torch.cat([xs, Bm, Cm], dim=-1),
+                                      params["conv_w"], params["conv_b"],
+                                      conv_state)
+    conv_out = _silu(conv_out)
+    xs = conv_out[..., :d_inner]
+    Bm = conv_out[..., d_inner:d_inner + gN]
+    Cm = conv_out[..., d_inner + gN:]
+    dt = _softplus(dt_raw.float() + params["dt_bias"])
+    return z, xs, Bm, Cm, dt, new_conv
+
+
+def _ssd_out(params: dict, cfg: ModelConfig, Y: torch.Tensor,
+             z: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    y = Y.reshape(z.shape).to(like.dtype)
+    y = rmsnorm(params["y_norm"], y * _silu(z), cfg.norm_eps)
+    return y @ params["w_out"]
+
+
+def ssd_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    conv_state=None, h0=None, return_state: bool = False):
+    """x: [B,S,D] -> [B,S,D]; with `return_state`, also the decode cache
+    {"state": f32 [B,H,N,P], "conv": the last W-1 conv inputs in x's
+    dtype}. S is padded up to a multiple of the chunk with state-neutral
+    steps (B = 0: no input; dlog = 0: no decay)."""
+    B, S, _ = x.shape
+    _, H, P, _ = ssd_dims(cfg)
+    z, xs, Bm, Cm, dt, new_conv = _ssd_conv_inputs(params, cfg, x,
+                                                   conv_state)
+    a = -torch.exp(params["A_log"])                           # [H], negative
+    dlog = dt * a[None, None, :]                              # [B,S,H]
+    X = xs.reshape(B, S, H, P)
+    U = X.float() * dt[..., None]
+    L = min(cfg.ssm.chunk, S)
+    pad = (-S) % L
+    if pad:
+        Y, hT = ssd_mix_chunked(
+            cfg, F.pad(U, (0, 0, 0, 0, 0, pad)), F.pad(Bm, (0, 0, 0, pad)),
+            F.pad(Cm, (0, 0, 0, pad)), F.pad(dlog, (0, 0, 0, pad)), h0)
+        Y = Y[:, :S]
+    else:
+        Y, hT = ssd_mix_chunked(cfg, U, Bm, Cm, dlog, h0)
+    Y = Y + params["D_skip"][None, None, :, None] * X.float()
+    out = _ssd_out(params, cfg, Y, z, x)
+    if return_state:
+        return out, {"state": hT.float(), "conv": new_conv}
+    return out
+
+
+def ssd_cache_init(cfg: ModelConfig, batch: int, lead: tuple = (),
+                   device="cpu") -> dict:
+    sc = cfg.ssm
+    d_inner, H, P, N = ssd_dims(cfg)
+    conv_dim = d_inner + 2 * sc.ngroups * N
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "state": torch.zeros(lead + (batch, H, N, P), **f32),
+        "conv": torch.zeros(lead + (batch, sc.conv_width - 1, conv_dim),
+                            **f32),
+    }
+
+
+def ssd_apply_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: dict, pos) -> tuple[torch.Tensor, dict]:
+    """Single-token state update; x: [B,1,D]; `pos` is not used. Writes
+    the new state and conv inputs into `cache` in place (the reference
+    returns them) and returns (y, cache). The conv inputs keep the
+    cache's dtype: an f32 cache from `ssd_cache_init` holds a bf16
+    model's inputs exactly, where the reference's would turn bf16."""
+    del pos
+    B = x.shape[0]
+    d_inner, H, P, _ = ssd_dims(cfg)
+    z, xs, Bm, Cm, dt, new_conv = _ssd_conv_inputs(params, cfg, x,
+                                                   cache["conv"])
+    Bm, Cm, dt = Bm[:, 0], Cm[:, 0], dt[:, 0]
+    a = -torch.exp(params["A_log"])
+    decay = torch.exp(dt * a[None, :])                        # [B,H]
+    X = xs.reshape(B, H, P).float()
+    U = X * dt[..., None]
+    state = cache["state"] * decay[..., None, None] + \
+        torch.einsum("bn,bhp->bhnp", Bm.float(), U)
+    Y = torch.einsum("bn,bhnp->bhp", Cm.float(), state)
+    Y = Y + params["D_skip"][None, :, None] * X
+    cache["state"].copy_(state)
+    cache["conv"].copy_(new_conv)
+    return _ssd_out(params, cfg, Y, z, x), cache

@@ -1,5 +1,9 @@
-"""Generic LM assembled from config stacks: the dense-attention part of
-`repro.models.lm` (mixers `attn` and `swa`, ffns `mlp` and `none`).
+"""Generic LM assembled from config stacks: `repro.models.lm` for the
+mixers `attn`, `swa` and `ssd` and the ffns `mlp`, `moe` and `none`,
+with the frame-embedding (`cfg.embed_inputs`) and patch-prefix
+(`cfg.num_patch_tokens`) front ends. It runs h2o-danube-3-4b, yi-9b,
+yi-34b, qwen3-14b, granite-moe-3b-a800m, musicgen-large, llava-next-34b
+and mamba2-2.7b.
 
 Parameters keep the reference's tree: `embed`, `final_norm`, `lm_head`
 (unless tied) and `stacks`, a list with one entry per stack, each a
@@ -26,9 +30,10 @@ Entry points:
   prefill_step_fn(cfg, capacity)        — (params, batch) -> (logits, cache)
   decode_step_fn(cfg)                   — (params, cache, tokens, pos) -> ...
   init_cache(cfg, batch, capacity)      — empty decode caches
-The MoE, MLA, SSD and RG-LRU mixers and the audio and VLM front ends
-wait for later slices (ROADMAP.md Queue 1 item 6): they raise
-NotImplementedError.
+The RG-LRU and MLA mixers wait for later slices (ROADMAP.md Queue 1
+items 6c and 6e): recurrentgemma-9b and deepseek-v3-671b raise
+NotImplementedError. The reference's `init_abstract`, `cache_abstract`
+and `analytic_param_count` are not ported yet (item 6f).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from repro_torch.training.optim import AdamWConfig, adamw_init, \
     adamw_update_, divide, tree_leaves, tree_map, tree_unflatten
 
 _ATTN = ("attn", "swa")
+_MIXERS = _ATTN + ("ssd",)
 
 
 def _parse(elem: str) -> tuple[str, str]:
@@ -65,13 +71,11 @@ def _unported(what: str):
 
 def _check_elem(elem: str) -> tuple[str, str]:
     mixer, ffn = _parse(elem)
-    if mixer not in _ATTN:
-        if mixer in ("mla", "ssd", "rglru"):
+    if mixer not in _MIXERS:
+        if mixer in ("mla", "rglru"):
             raise _unported(f"the {mixer!r} mixer")
         raise ValueError(f"unknown mixer {mixer!r}")
-    if ffn not in ("mlp", "none"):
-        if ffn == "moe":
-            raise _unported("the 'moe' ffn")
+    if ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown ffn {ffn!r}")
     return mixer, ffn
 
@@ -99,12 +103,17 @@ def _stack(trees: list):
 # ----------------------------------------------------------------------------
 def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
                device="cpu") -> dict:
-    _, ffn = _check_elem(elem)
-    p: dict[str, Any] = {"norm1": L._norm_init(cfg.d_model, lead, device),
-                         "mixer": L.attn_init(generator, cfg, lead, device)}
+    mixer, ffn = _check_elem(elem)
+    p: dict[str, Any] = {"norm1": L._norm_init(cfg.d_model, lead, device)}
+    if mixer == "ssd":
+        p["mixer"] = L.ssd_init(generator, cfg, lead, device)
+    else:
+        p["mixer"] = L.attn_init(generator, cfg, lead, device)
     if ffn != "none":
         p["norm2"] = L._norm_init(cfg.d_model, lead, device)
-        p["ffn"] = L.mlp_init(generator, cfg, lead=lead, device=device)
+        p["ffn"] = (L.mlp_init(generator, cfg, lead=lead, device=device)
+                    if ffn == "mlp"
+                    else L.moe_init(generator, cfg, lead, device))
     return p
 
 
@@ -112,7 +121,8 @@ def _ffn(params: dict, cfg: ModelConfig, ffn: str,
          x: torch.Tensor) -> torch.Tensor:
     if ffn != "none":
         h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(params["ffn"], h)
+        x = x + (L.mlp_apply(params["ffn"], h) if ffn == "mlp"
+                 else L.moe_apply(params["ffn"], cfg, h))
     return x
 
 
@@ -120,14 +130,19 @@ def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
                       x: torch.Tensor) -> torch.Tensor:
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    h = L.attn_apply_train(params["mixer"], cfg, h,
-                           window=_mixer_window(cfg, mixer))
+    if mixer == "ssd":
+        h = L.ssd_apply_train(params["mixer"], cfg, h)
+    else:
+        h = L.attn_apply_train(params["mixer"], cfg, h,
+                               window=_mixer_window(cfg, mixer))
     return _ffn(params, cfg, ffn, x + h)
 
 
 def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
                      capacity: int, lead: tuple = (), device="cpu") -> dict:
     mixer, _ = _check_elem(elem)
+    if mixer == "ssd":
+        return L.ssd_cache_init(cfg, batch, lead, device)
     return L.attn_cache_init(cfg, batch, capacity,
                              window=_mixer_window(cfg, mixer), lead=lead,
                              device=device)
@@ -137,8 +152,13 @@ def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
                        x: torch.Tensor, cache: dict, pos: int) -> tuple:
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    h, new_cache = L.attn_apply_decode(params["mixer"], cfg, h, cache, pos,
-                                       window=_mixer_window(cfg, mixer))
+    if mixer == "ssd":
+        h, new_cache = L.ssd_apply_decode(params["mixer"], cfg, h, cache,
+                                          pos)
+    else:
+        h, new_cache = L.attn_apply_decode(params["mixer"], cfg, h, cache,
+                                           pos,
+                                           window=_mixer_window(cfg, mixer))
     return _ffn(params, cfg, ffn, x + h), new_cache
 
 
@@ -149,6 +169,10 @@ def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
     `use_pallas_attn` says."""
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if mixer == "ssd":
+        h, cache = L.ssd_apply_train(params["mixer"], cfg, h,
+                                     return_state=True)
+        return _ffn(params, cfg, ffn, x + h), cache
     window = _mixer_window(cfg, mixer)
     positions = torch.arange(h.shape[1], device=h.device)
     q, k, v = L.attn_qkv(params["mixer"], cfg, h, positions)
@@ -173,7 +197,6 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
     for stack in cfg.stacks:
         for elem in stack.pattern:
             _check_elem(elem)
-    _embed_check(cfg)
     dt = L._dt(cfg)
     params: dict[str, Any] = {
         "embed": L._winit(generator, (cfg.vocab_size, cfg.d_model), dt,
@@ -194,13 +217,6 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
 # ----------------------------------------------------------------------------
 # Forward (training / prefill trunk)
 # ----------------------------------------------------------------------------
-def _embed_check(cfg: ModelConfig) -> None:
-    if cfg.embed_inputs:
-        raise _unported("the frame-embedding front end (embed_inputs)")
-    if cfg.num_patch_tokens:
-        raise _unported("the patch-embedding front end (num_patch_tokens)")
-
-
 def _embed_tokens(params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     tok = params["embed"][tokens.long()]
@@ -208,8 +224,16 @@ def _embed_tokens(params, cfg: ModelConfig,
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    _embed_check(cfg)
-    return _embed_tokens(params, cfg, batch["tokens"])
+    """The trunk's input [B,S,D]: musicgen's frame embeddings
+    (`batch["embeddings"]`) in the model's dtype; else the scaled token
+    embeddings, after llava's patch embeddings (`batch["patch_embeds"]`,
+    [B,P,D], cast to the tokens' dtype) where the config has them."""
+    if cfg.embed_inputs:
+        return batch["embeddings"].to(L._dt(cfg))
+    tok = _embed_tokens(params, cfg, batch["tokens"])
+    if cfg.num_patch_tokens:
+        tok = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
+    return tok
 
 
 def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -234,12 +258,19 @@ def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy over the batch, f32 scalar."""
+    """Mean next-token cross-entropy over the batch, f32 scalar. With
+    frame embeddings every position is scored against `batch["labels"]`
+    (no shift); with a patch prefix of P positions, logits[:, P:-1]
+    against tokens[:, 1:]."""
     x = _embed_inputs(params, cfg, batch)
     h = forward_trunk(params, cfg, x)
     logits = logits_fn(params, cfg, h).float()
-    lg = logits[:, :-1]
-    labels = batch["tokens"][:, 1:].long()
+    if cfg.embed_inputs:
+        lg, labels = logits, batch["labels"].long()
+    else:
+        off = cfg.num_patch_tokens
+        lg = logits[:, off:-1]
+        labels = batch["tokens"][:, 1:].long()
     logp = torch.log_softmax(lg, dim=-1)
     ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -366,8 +397,9 @@ def prefill_step_fn(cfg: ModelConfig, capacity: int):
 
 def decode_step_fn(cfg: ModelConfig):
     def decode(params, caches, tokens, pos):
-        """tokens: [B,1] int; pos: int, the tokens' position. Updates
-        `caches` in place; returns (logits [B,1,V], caches)."""
+        """tokens: [B,1] int; pos: int, the tokens' position. Every arch
+        embeds tokens here, the front-end ones too. Updates `caches` in
+        place; returns (logits [B,1,V], caches)."""
         pos = int(pos)
         x = _embed_tokens(params, cfg, tokens)
         for stack, elem_params, stack_cache in zip(cfg.stacks,

@@ -2,9 +2,12 @@
 AdamW or Adafactor, in place) against the JAX reference, on the CPU at
 smoke size.
 
-The reference's params cross with `lm_from_jax_params`; tokens come from
-numpy. One step from the same params on the same global batch (4
-sequences of 32 tokens, microbatches of 2): the loss within 1e-5
+The reference's params cross with `lm_from_jax_params`; the batch is the
+reference's `make_batch` (numpy-drawn: tokens; musicgen's frame
+embeddings and labels; llava's tokens after a patch prefix). One step
+from the same params on the same global batch (4 sequences of 32
+positions, microbatches of 2), for every arch the port runs (the MoE
+ffn and the SSD mixer included): the loss within 1e-5
 relative; the params after the step within f32 rounding wherever the
 reference's gradient is above 1e-3 of its largest, and within the
 step's bound 2·lr elsewhere (Adam's first step moves an entry by ±lr
@@ -27,6 +30,8 @@ import jax.numpy as jnp
 
 from repro.models import lm as jlm
 from repro.models import registry as jreg
+from repro.models.config import ShapeSpec
+from repro.models.inputs import make_batch as jmake_batch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import lm
@@ -35,7 +40,9 @@ from repro_torch.models.params import lm_from_jax_params
 from repro_torch.training import adafactor as PA
 from repro_torch.training import optim as PO
 
-ARCHS = ["h2o-danube-3-4b", "yi-9b", "yi-34b", "qwen3-14b"]
+ARCHS = ["h2o-danube-3-4b", "yi-9b", "yi-34b", "qwen3-14b",
+         "granite-moe-3b-a800m", "musicgen-large", "llava-next-34b",
+         "mamba2-2.7b"]
 B, S = 4, 32
 LOSS_RTOL = 1e-5
 
@@ -48,10 +55,17 @@ def _tokens(cfg, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
 
 
-def _jax_step(cfg, jparams, tokens):
+def _batch(cfg, seed=1):
+    """The reference's `make_batch` of B x S positions as numpy arrays
+    (for tokens alone: `_tokens(cfg, seed)`'s)."""
+    return {k: np.array(v) for k, v in jmake_batch(
+        cfg, ShapeSpec("train", S, B, "train"), seed=seed).items()}
+
+
+def _jax_step(cfg, jparams, batch):
     """The reference's step: (loss, params after, the full batch's grads,
     lr)."""
-    batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
+    batch = {k: jnp.asarray(v) for k, v in batch.items()}
     opt_init, _ = jlm.make_optimizer(cfg)
     new, _, stats = jax.jit(jlm.train_step_fn(cfg))(
         jparams, opt_init(jparams), batch)
@@ -62,11 +76,12 @@ def _jax_step(cfg, jparams, tokens):
             float(stats["lr"]))
 
 
-def _port_step(cfg, jparams, tokens):
+def _port_step(cfg, jparams, batch):
     params = lm_from_jax_params(_np(jparams), cfg, device="cpu")
     opt_init, _ = lm.make_optimizer(cfg)
     new, _, stats = lm.train_step_fn(cfg)(
-        params, opt_init(params), {"tokens": torch.from_numpy(tokens)})
+        params, opt_init(params),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
     return float(stats["loss"]), [x.detach().numpy()
                                   for x in PO.tree_leaves(new)]
 
@@ -81,9 +96,9 @@ def _holds(port, ref, grads, lr):
 
 def _check_against_jax(cfg_j, cfg_p, seed=0):
     jparams = jlm.init_params(jax.random.key(seed), cfg_j)
-    tokens = _tokens(cfg_j)
-    jloss, jnew, jgrads, lr = _jax_step(cfg_j, jparams, tokens)
-    ploss, pnew = _port_step(cfg_p, jparams, tokens)
+    batch = _batch(cfg_j)
+    jloss, jnew, jgrads, lr = _jax_step(cfg_j, jparams, batch)
+    ploss, pnew = _port_step(cfg_p, jparams, batch)
     assert ploss == pytest.approx(jloss, rel=LOSS_RTOL)
     assert len(pnew) == len(jnew)
     _holds(pnew, jnew, jgrads, lr)
@@ -325,6 +340,21 @@ def test_cli_trains_an_lm_on_the_cpu(capsys):
           "--seq", "32", "--batch", "4", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("arch=h2o-danube-3-4b-smoke params=")
+    assert [line.split(":")[0] for line in out[1:]] == ["step 0", "step 1"]
+    assert all(np.isfinite(float(line.split("loss=")[1].split()[0]))
+               for line in out[1:])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-large",
+                                  "llava-next-34b", "mamba2-2.7b"])
+def test_cli_trains_the_zoo_archs_on_the_cpu(arch, capsys):
+    """`train lm` on the MoE, front-end and SSD archs: make_batch gives
+    each its inputs (llava: --seq 32 counts its 16 patch positions)."""
+    from repro_torch.launch.train import main
+    main(["lm", "--arch", arch, "--smoke", "--steps", "2", "--seq", "32",
+          "--batch", "4", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"arch={arch}-smoke params=")
     assert [line.split(":")[0] for line in out[1:]] == ["step 0", "step 1"]
     assert all(np.isfinite(float(line.split("loss=")[1].split()[0]))
                for line in out[1:])

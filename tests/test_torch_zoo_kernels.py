@@ -105,18 +105,23 @@ def test_flash_attention_rejects_mismatched_shapes():
 # The card's bf16 kernel (csrc/flash_attention_sm90.cu) cannot run here.
 # What it changes in the arithmetic can: bf16 operands with f32 sums in
 # the tensor cores, the scale applied to the f32 score after q . k, a
-# tiled online softmax, and P split into bf16 halves for P . V. The
-# emulation below does exactly that, and is held to the limit the card's
-# checks use (chip_smoke.py FLASH_TOL, tests/test_torch_cuda.py).
+# tiled online softmax, P split into bf16 halves for P . V, whose k16
+# steps the tensor cores add into an f32 accumulator rounding toward zero
+# (`_rz_float32`), a fresh one per key tile folded in as O·alpha + O_t.
+# The emulation below does exactly that, and is held to the limit the
+# card's checks use (chip_smoke.py FLASH_TOL, tests/test_torch_cuda.py).
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -6, 1e-5
 
 
 def _emulate_tensor_core_flash(q, k, v, *, causal, window, q_offset,
-                               tile=128, split_p=True):
+                               tile=128, split_p=True, fresh_pv=True):
     """q [B,Sq,H,hd], k, v [B,Sk,KH,hd] in bf16 -> bf16, in the rounding
     of the bf16 kernel: key tiles of `tile`, running (m, l, O) in f32,
     P . V as bf16(p) . V + bf16(p - bf16(p)) . V (or, with `split_p`
-    False, bf16(p) . V alone, the usual flash kernel's rounding)."""
+    False, bf16(p) . V alone, the usual flash kernel's rounding), its k16
+    steps added toward zero into a fresh accumulator folded in as
+    O·alpha + O_t in one rounding (or, with `fresh_pv` False, into O
+    carried across the row, as the kernel once did)."""
     B, Sq, H, hd = q.shape
     Sk, rep = k.shape[1], H // k.shape[2]
     qf = q.float().transpose(1, 2)                          # [B,H,Sq,hd]
@@ -141,10 +146,15 @@ def _emulate_tensor_core_flash(q, k, v, *, causal, window, q_offset,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         p_hi = p.bfloat16().float()
-        pv = p_hi @ vt
-        if split_p:
-            pv = pv + (p - p_hi).bfloat16().float() @ vt
-        o = o * alpha + pv
+        terms = [p_hi] + ([(p - p_hi).bfloat16().float()] if split_p
+                          else [])
+        acc = torch.zeros_like(o) if fresh_pv else o * alpha
+        for k16 in range(0, kt.shape[2], 16):
+            for t in terms:
+                acc = _rz_float32(acc.double() + t[..., k16:k16 + 16].double()
+                                  @ vt[..., k16:k16 + 16, :].double())
+        o = ((o.double() * alpha.double() + acc.double()).float()
+             if fresh_pv else acc)
         m = m_new
     return (o / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
 
@@ -181,6 +191,29 @@ def test_flash_attention_bf16_kernel_rounding_within_flash_tol(case):
     at most 2^-7·|ref|, is half of that: 0.46-0.50 of the limit here)."""
     worst, _ = _bf16_worst(case, split_p=True)
     assert worst <= 1.0, worst
+
+
+def test_flash_attention_bf16_pv_carried_across_tiles_fails_flash_tol():
+    """The guard on the fresh P . V accumulator: late rows of an S = 8192
+    causal head with q, k, v ~ N(0, 1.7^2) (llava-next-34b's layer-0
+    scale: a peaked softmax over large v), whose outputs cancel to near 0
+    here and there. P . V carried across the row in the truncating
+    accumulator puts one of them past 2^-6·|ref| + 1e-5; folded per key
+    tile it stays at the output's own rounding."""
+    S, hd, q0 = 8192, 128, 6144
+    g = torch.Generator().manual_seed(3)
+    q, k, v = ((torch.randn(1, S, 1, hd, generator=g) * 1.7).bfloat16()
+               for _ in range(3))
+    q = q[:, q0:]
+    kw = dict(causal=True, window=None, q_offset=q0)
+    ref = fa.flash_attention_plain(q, k, v, **kw).float()
+    worst = []
+    for fresh in (False, True):
+        got = _emulate_tensor_core_flash(q, k, v, fresh_pv=fresh, **kw)
+        worst.append(float(((got.float() - ref).abs()
+                             / (FLASH_BF16_RTOL * ref.abs()
+                                + FLASH_BF16_ATOL)).max()))
+    assert worst[0] > 1.0 and worst[1] <= 0.55, worst
 
 
 def test_flash_attention_bf16_p_rounded_once_fails_flash_tol():
