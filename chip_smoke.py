@@ -68,11 +68,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
              at hd=128 and non-causal (bf16) and at S=1024 in f32 (hd 120
              and 64, q x 1 and x 3), at the full-causal bf16 layers of
              granite-moe-3b-a800m (H=24, KH=8, hd=64), musicgen-large
-             (32, 32, 64) and llava-next-34b (56, 8, 128), timed beside
-             PyTorch's scaled_dot_product_attention on the same inputs (the
-             yardstick only), each held element by element; at the layer
-             shape, in both dtypes, planted faults (window off by one, 64
-             keys left out) must fail that check; `ssd_scan` at
+             (32, 32, 64) and llava-next-34b (56, 8, 128), and the hd-256
+             routes (bf16 on the tensor cores by mma.sync, f32 on the CUDA
+             cores) at recurrentgemma-9b's local attention (H=16, KH=1,
+             hd=256, window 2048), timed beside PyTorch's
+             scaled_dot_product_attention on the same inputs (the
+             yardstick only), each held element by element; at h2o's and
+             recurrentgemma's layer shapes, in both dtypes, planted faults
+             (window off by one, 64 keys left out) must fail that check;
+             `ssd_scan` at
              Mamba2-2.7b's full shapes (B=2, nc=32, H=80, N=128, P=64),
              bit-exact.
 9. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
@@ -190,6 +194,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
              mixer runs the reference's chunked algorithm); prefill on
              8191 tokens (padded to the chunk) + decode of the last
              against the forward; the serve loop as in 10.
+20. lm-rglru — recurrentgemma-9b at full width (d 4096, RG-LRU width
+             4096, 16 heads over 1 kv head at hd 256, window 2048, bf16,
+             seed-0 weights) and its full 38 layers, or the deepest cut of
+             (lru, lru, attn) blocks that fits (printed): `loss_fn` over
+             2 x 8192 tokens with the flash kernel (12 launches of the
+             hd-256 bf16 route) and with `chunked_attention`, held as in 9;
+             layer 0's RG-LRU mixer in f32, card vs CPU; the serve loop as
+             in 10. Then its first (lru, lru, attn) block in f32 through
+             the same checks on the hd-256 f32 route.
+21. import — the program importer (`core/hlo_import`) on the card: the
+             smoke `loss_fn` of benchmarks/common.py's five archs (yi-9b,
+             mamba2-2.7b, granite-moe-3b-a800m, recurrentgemma-9b,
+             musicgen-large) traced into programs (nodes, DOTs, DOT FLOPs,
+             seconds; each equal to the CPU's trace by kernel_hash), then
+             a 10k-node `whole_model_graph` of their blocks scored through
+             the segmented service (budget 512, segment_aggregate) in f32
+             and int8, kernels on vs off within 1e-4·max|pred|.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -696,6 +717,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels import ssd_scan as ss
     ga.launches = sa.launches = sa.launches_i8 = 0
     fa.launches = fa.launches_tc = fa.launches_f32 = ss.launches = 0
+    fa.launches_hd256 = fa.launches_hd256_f32 = 0
 
 
 def _launches() -> dict:
@@ -708,7 +730,16 @@ def _launches() -> dict:
             "segment_aggregate_i8": sa.launches_i8,
             "flash_attention": fa.launches,
             "flash_attention_tc": fa.launches_tc,
-            "flash_attention_f32": fa.launches_f32, "ssd_scan": ss.launches}
+            "flash_attention_f32": fa.launches_f32,
+            "flash_attention_hd256": fa.launches_hd256,
+            "flash_attention_hd256_f32": fa.launches_hd256_f32,
+            "ssd_scan": ss.launches}
+
+
+# the _launches() key of each flash route (kernels.flash_attention.ROUTES)
+FLASH_ROUTE_KEY = {"sm90": "flash_attention_tc", "tf32": "flash_attention_f32",
+                   "hd256": "flash_attention_hd256",
+                   "hd256_f32": "flash_attention_hd256_f32"}
 
 
 def serve(label, make_service, requests, kernels, tag="serve",
@@ -1103,13 +1134,21 @@ FLASH_CASES = (
     ("granite-layer", LM_BATCH, LM_SEQ, 24, 8, 64, True, None, "bfloat16", 5),
     ("musicgen-layer", LM_BATCH, LM_SEQ, 32, 32, 64, True, None, "bfloat16",
      5),
-    ("llava-layer", LM_BATCH, LM_SEQ, 56, 8, 128, True, None, "bfloat16", 5))
+    ("llava-layer", LM_BATCH, LM_SEQ, 56, 8, 128, True, None, "bfloat16", 5),
+    # recurrentgemma-9b's local attention (MQA, hd 256, window 2048): the
+    # hd-256 routes, bf16 (mma.sync) and f32 (CUDA-core FMAs)
+    ("rg-layer", LM_BATCH, LM_SEQ, 16, 1, 256, True, 2048, "bfloat16", 3),
+    ("rg-layer-f32", LM_BATCH, LM_SEQ, 16, 1, 256, True, 2048, "float32", 2))
 # q is drawn N(0, 1) times this (1 elsewhere): q x 3 makes the scores
 # larger, and exp turns a score's error into most of the output's
 FLASH_Q_SCALE = {"f32-q3": 3.0}
 # the cases whose planted faults are checked: the model's layer, bf16 and
-# f32
-FLASH_FAULT_CASES = ("layer", "f32-layer")
+# f32, and recurrentgemma-9b's on the hd-256 routes
+FLASH_FAULT_CASES = ("layer", "f32-layer", "rg-layer", "rg-layer-f32")
+# the kernels-line row of each route, at its layer shape
+FLASH_ROW_CASES = {"layer": "flash_attention", "f32-layer":
+                   "flash_attention_f32", "rg-layer": "flash_attention_hd256",
+                   "rg-layer-f32": "flash_attention_hd256_f32"}
 SSD_SHAPE = (2, 32, 80, 128, 64)    # B, nc, H, N, P: Mamba2-2.7b, 8192 tokens
 # flash_attention vs. its plain version, element by element:
 # |out - ref| <= rtol·|ref| + atol. Both take the same f32 arithmetic and
@@ -1226,8 +1265,7 @@ def _flash_faults(label, q, k, v, out, ref, window, rtol, atol) -> None:
 def check_flash_attention() -> dict:
     """Each FLASH_CASES case: kernel vs plain, element by element, timed
     beside the plain version and SDPA. Returns the kernels-line rows of
-    the two routes at the layer shape: bf16 ("layer") and f32
-    ("f32-layer")."""
+    the routes at their layer shapes (FLASH_ROW_CASES)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1269,13 +1307,21 @@ def check_flash_attention() -> dict:
         flops = 4 * hd * pairs * B * H
         nbytes = q.element_size() * 2 * hd * (B * S * H + B * S * KH)
         bf16 = dt == torch.bfloat16
-        # f32: split TF32 (three tf32 products per f32 product), the fp32
-        # CUDA cores' bound printed beside it
+        route_name = fa.route_for(dt, hd)
+        # tf32 route: split TF32 (three tf32 products per f32 product),
+        # the fp32 CUDA cores' bound printed beside it; hd256_f32: the
+        # fp32 CUDA cores (its own arithmetic)
         b_ms, b_by = (bound(nbytes, flops, PEAK_BF16_FLOP_PER_S) if bf16
-                      else _tf32_split_bound(nbytes, flops))
+                      else _tf32_split_bound(nbytes, flops)
+                      if route_name == "tf32" else bound(nbytes, flops))
         fp32_ms, _ = bound(nbytes, flops)
-        route = ("flash_attention_sm90.cu, tensor cores" if bf16
-                 else "flash_attention_tf32.cu, split-TF32 tensor cores")
+        split_note = (f", split tf32; fp32 bound {fp32_ms:.4f}"
+                      if route_name == "tf32" else "")
+        route = {"sm90": "flash_attention_sm90.cu, tensor cores",
+                 "tf32": "flash_attention_tf32.cu, split-TF32 tensor cores",
+                 "hd256": "flash_attention_hd256.cu, mma.sync tensor cores",
+                 "hd256_f32": "flash_attention_hd256.cu, fp32 CUDA cores"}[
+            route_name]
         log(f"[zoo-kernels] flash_attention {label} B={B} S={S} H={H} "
             f"KH={KH} hd={hd} causal={causal} window={window} "
             f"{str(dt).removeprefix('torch.')}, q x "
@@ -1292,15 +1338,15 @@ def check_flash_attention() -> dict:
             f"{dev_lib_ms:.4f}, max_abs_err vs plain {lib_err:.3e}, worst "
             f"{lib_worst:.3f} of the limit; "
             f"{lib_split[:100]}), bound {b_ms:.4f} ms ({b_by}"
-            f"{'' if bf16 else f', split tf32; fp32 bound {fp32_ms:.4f}'}"
+            f"{split_note}"
             f"; {pairs} pairs per head, {flops:.4e} FLOP, {nbytes} bytes)")
         if not ok:
             raise AssertionError(f"flash_attention {label}: worst "
                                  f"{worst} of the limit")
         if label in FLASH_FAULT_CASES:
             _flash_faults(label, q, k, v, out, ref, window, rtol, atol)
-        if label in ("layer", "f32-layer"):
-            rows[label] = {"max_abs_err": err, "ms": ms,
+        if label in FLASH_ROW_CASES:
+            rows[FLASH_ROW_CASES[label]] = {"max_abs_err": err, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": lib_ms}
         del q, k, v, out, ref
@@ -1487,9 +1533,9 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None,
                profile_chunked=True) -> dict:
     """`loss_fn` over `batch` (LM_BATCH x LM_SEQ tokens by default) with
     the flash kernel and with chunked_attention, in the model's dtype:
-    one launch per layer of the route of that dtype (bf16: the
-    tensor-core kernel, f32: the split-TF32 one), agreement within that
-    dtype's limits, layer 0 held apart, planted faults. The flash run is
+    one launch per attention layer of the route of that dtype and head
+    dim (`fa.route_for`), agreement within that dtype's limits, the first
+    attention layer held apart, planted faults. The flash run is
     profiled, and the chunked one unless not `profile_chunked`. Returns
     {flag: {"loss", "last" (last-position logits, f32), "launches",
     "wall"}}."""
@@ -1500,8 +1546,11 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None,
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
     loss_tol, logit_rtol, _ = _lm_limits(cfg)
-    route = "flash_attention_f32" if cfg.dtype == "float32" \
-        else "flash_attention_tc"
+    from repro_torch.models.layers import _dt
+    route = FLASH_ROUTE_KEY[fa.route_for(_dt(cfg), cfg.resolved_head_dim)]
+    n_attn = sum(stack.repeats for stack in cfg.stacks
+                 for elem in stack.pattern
+                 if elem.split("+")[0] in ("attn", "swa"))
     batch = batch or _lm_tokens(cfg)
     res, seen = {}, {}
 
@@ -1554,10 +1603,10 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None,
         raise AssertionError(f"{tag}: kernel vs chunked out of tolerance")
     n = res[True]["launches"]["flash_attention"]
     n_route = res[True]["launches"][route]
-    if (n != cfg.num_layers or n_route != n
+    if (n != n_attn or n_route != n
             or res[False]["launches"]["flash_attention"]):
         raise AssertionError(f"{tag}: {n} flash launches ({n_route} of "
-                             f"{route}), expected {cfg.num_layers}, all of "
+                             f"{route}), expected {n_attn}, all of "
                              f"it (and 0 with the flag off)")
     _layer_hold(cfg, seen, tag)
     window = seen["kw"].get("window")
@@ -1587,7 +1636,7 @@ def _log_profile(tag, fn, top=5, host_ops=True) -> float:
     return busy
 
 
-def as_f32(cfg, params):
+def as_f32(cfg, params, tag="lm-forward-f32"):
     """The f32 configuration of the model and its parameters: the same
     (seed-0, bf16) weights cast to f32, tensor by tensor; the bf16 tree
     is emptied as it goes, so that both never sit whole on the card."""
@@ -1609,7 +1658,7 @@ def as_f32(cfg, params):
     torch.cuda.synchronize()
     from repro_torch.models import lm
     n = lm.param_count(f32)
-    log(f"[lm-forward-f32] {ARCH} in float32: the seed-0 weights cast, "
+    log(f"[{tag}] {cfg.name} in float32: the seed-0 weights cast, "
         f"{n} params, {4 * n / 2**30:.2f} GiB, in "
         f"{time.perf_counter() - t0:.2f} s")
     return dataclasses.replace(cfg, dtype="float32"), f32
@@ -3252,6 +3301,196 @@ def phase_lm_ssd(card: str) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- 20
+RG_ARCH = "recurrentgemma-9b"
+# the full 38 layers first; a cut keeps the (lru, lru, attn) pattern
+RG_DEPTHS = (38, 30, 24)
+# the f32 pass on the hd-256 f32 route: the first (lru, lru, attn) block
+RG_F32_DEPTH = 3
+# the RG-LRU mixer in f32, card vs CPU: max|Δ| <= 1e-5·max|ref| (f32 sums
+# of the four 4096-long products in another order, ~1e-6 relative; the
+# recurrence combines in the same order on both)
+RGLRU_CARD_RTOL = 1e-5
+
+
+def _rg_config(depth):
+    """recurrentgemma-9b's full config, or its first `depth` layers as
+    (lru, lru, attn) blocks."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    from repro_torch.models.config import Stack
+    full = registry.get_config(RG_ARCH)
+    if depth == full.num_layers:
+        return full
+    return dataclasses.replace(full, stacks=(Stack(full.stacks[0].pattern,
+                                                   depth // 3),))
+
+
+@contextlib.contextmanager
+def _first_rglru():
+    """Keeps the first `rglru_apply_train` call's params and input."""
+    from repro_torch.models import layers
+    apply = layers.rglru_apply_train
+    rec = {}
+
+    def keep(p, cfg, x):
+        if not rec:
+            rec.update(p=p, x=x.clone())
+        return apply(p, cfg, x)
+    layers.rglru_apply_train = keep
+    try:
+        yield rec
+    finally:
+        layers.rglru_apply_train = apply
+
+
+def rglru_card_vs_cpu(cfg, p0, x0) -> None:
+    """Layer 0's RG-LRU mixer (`rglru_core`) in f32 on the card against the
+    CPU, from the same inputs (the layer's bf16 weights and the first
+    sequence the forward gave it, cast to f32): y, the conv state and h at
+    the last step, each within RGLRU_CARD_RTOL of its max|ref|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import layers
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p_card = {k: v.float() for k, v in p0.items()}
+    x_card = x0[:1].float()
+    t0 = time.perf_counter()
+    got = [t.cpu() for t in layers.rglru_core(p_card, c32, x_card)]
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = layers.rglru_core({k: v.cpu() for k, v in p_card.items()}, c32,
+                             x_card.cpu())
+    t_cpu = time.perf_counter() - t0
+    errs = []
+    for name, g, w in zip(("y", "conv state", "h_last"), got, want):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        errs.append(err <= RGLRU_CARD_RTOL * scale)
+        log(f"[lm-rglru] layer 0 rglru_core in f32 over {tuple(x_card.shape)}"
+            f", card vs CPU, {name}: max|Δ| {err:.3e} (tol "
+            f"{RGLRU_CARD_RTOL * scale:.3e}, max|ref| {scale:.4f})")
+    log(f"[lm-rglru] rglru_core card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    if not all(errs):
+        raise AssertionError("lm-rglru: rglru_core card vs CPU")
+
+
+def phase_lm_rglru(card: str) -> dict:
+    """Phase 20: recurrentgemma-9b at full width and the deepest of
+    RG_DEPTHS that fits (the full 38 layers first): `lm_forward` (the
+    hd-256 bf16 flash route in its 12 local-attention layers vs
+    chunked_attention), layer 0's RG-LRU mixer card vs CPU in f32, the
+    serve loop; then its first RG_F32_DEPTH layers in f32 through
+    `lm_forward` on the hd-256 f32 route. Returns the two routes'
+    launches."""
+    import torch
+    from repro_torch.models import lm
+    log(f"[lm-rglru] on {card}")
+    t0 = time.perf_counter()
+    for depth in RG_DEPTHS:
+        _free_card()
+        params = res = None
+        try:
+            cfg = _rg_config(depth)
+            params = lm.init_params(
+                torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                device=DEVICE)
+            log(f"[lm-rglru] {RG_ARCH}: {cfg.num_layers} layers, "
+                f"d_model {cfg.d_model}, {cfg.num_heads} heads "
+                f"({cfg.num_kv_heads} kv), head_dim {cfg.resolved_head_dim},"
+                f" window {cfg.sliding_window}, lru {cfg.rglru}, d_ff "
+                f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+                f"{lm.param_count(params)} params")
+            with _first_rglru() as first:
+                res = lm_forward(cfg, params, "lm-rglru",
+                                 profile_chunked=False)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[lm-rglru] depth {depth} does not fit: "
+                f"{str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("[lm-rglru]: no depth fits")
+    full = RG_DEPTHS[0]
+    log(f"[lm-rglru] depth {cfg.num_layers} of {full}"
+        f"{'' if depth == full else ' (cut: deeper does not fit)'}")
+    rglru_card_vs_cpu(cfg, first["p"], first["x"])
+    first.clear()
+    lm_serve(cfg, params, "lm-rglru")
+    launches = {"flash_attention_hd256":
+                res[True]["launches"]["flash_attention_hd256"]}
+    del params, res
+    _free_card()
+    log(f"[time] recurrentgemma bf16 done in {time.perf_counter() - t0:.1f}"
+        " s")
+    cfg = _rg_config(RG_F32_DEPTH)
+    params = lm.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                            cfg, device=DEVICE)
+    cfg32, params = as_f32(cfg, params, "lm-rglru-f32")
+    res = lm_forward(cfg32, params, "lm-rglru-f32", profile_chunked=False)
+    launches["flash_attention_hd256_f32"] = res[True]["launches"][
+        "flash_attention_hd256_f32"]
+    del params, res
+    _free_card()
+    log(f"[lm-rglru] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -------------------------------------------------------------------- 21
+# benchmarks/common.py's five arch programs
+IMPORT_ARCHS = ("yi-9b", "mamba2-2.7b", "granite-moe-3b-a800m",
+                "recurrentgemma-9b", "musicgen-large")
+
+
+def phase_import(card: str, replay, seg_qm) -> dict:
+    """Phase 21: the program importer on the card: each of IMPORT_ARCHS'
+    smoke `loss_fn` traced into a program (the same program, by
+    kernel_hash, as traced on the CPU); then a WHOLE_NODES-node
+    `whole_model_graph` of their blocks in turn, scored through the
+    segmented service (budget 512) in f32 and int8, kernels on vs off.
+    Returns the aggregation launches of the two timed runs."""
+    import math
+
+    import torch
+    from repro_torch.core import hlo_import, opset
+    from repro_torch.data.corpus import kernel_hash
+    from repro_torch.data.synthetic import whole_model_graph
+    log(f"[import] on {card}")
+    t0 = time.perf_counter()
+    for arch in IMPORT_ARCHS:
+        t1 = time.perf_counter()
+        g = hlo_import.import_arch_program(arch, device=DEVICE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        dots = [n for n in g.nodes if n.op is opset.DOT]
+        flops = sum(2 * n.contract_dim * math.prod(n.shape) for n in dots)
+        same = kernel_hash(g) == kernel_hash(
+            hlo_import.import_arch_program(arch, device="cpu"))
+        log(f"[import] {g.name}: {g.num_nodes} nodes, {len(dots)} DOTs, "
+            f"DOT FLOPs {flops:.4e}, traced on the card in {dt:.3f} s; the "
+            f"CPU's program {'equal' if same else 'DIFFERS'}")
+        if not (same and dots and g.num_nodes
+                < hlo_import._MAX_NODES_PER_PROGRAM):
+            raise AssertionError(f"import {arch}: program out of order")
+    t1 = time.perf_counter()
+    whole = whole_model_graph(WHOLE_NODES, seed=0, arch_blocks=IMPORT_ARCHS,
+                              device=DEVICE)
+    log(f"[import] whole_model_graph of {IMPORT_ARCHS}: {whole.num_nodes} "
+        f"nodes, {sum(n.op is opset.DOT for n in whole.nodes)} DOTs, built "
+        f"in {time.perf_counter() - t1:.3f} s")
+    seg_kw = dict(reduction="column_wise")
+    requests = [[whole]]
+    f32 = serve("imported f32", f32_services(replay, "segmented", **seg_kw),
+                requests, ["segment_aggregate"], tag="import")
+    i8 = serve("imported int8", int8_services(replay, seg_qm, "segmented"),
+               requests, ["segment_aggregate_i8"], tag="import")
+    log(f"[import] predictions f32 {f32['preds'].tolist()} int8 "
+        f"{i8['preds'].tolist()}; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"segment_aggregate": f32["launches"]["segment_aggregate"],
+            "segment_aggregate_i8": i8["launches"]["segment_aggregate_i8"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3340,8 +3579,7 @@ def main() -> int:
     # 8-10: the LM zoo
     log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 8-11")
     flash = check_flash_attention()
-    rows["flash_attention"], rows["flash_attention_f32"] = (
-        flash["layer"], flash["f32-layer"])
+    rows.update(flash)
     rows["ssd_scan"] = check_ssd_scan()
     with torch.inference_mode():
         cfg, params = _lm_model()
@@ -3388,6 +3626,15 @@ def main() -> int:
                                            + sum(fronts.values()))
     rows["ssd_scan"]["launches"] += ssd["ssd_scan"]
 
+    # 20-21: the RG-LRU mixer with the hd-256 flash routes, the importer
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 20")
+    with torch.inference_mode():
+        rows_rg = phase_lm_rglru(card)
+    for name, n in rows_rg.items():
+        rows[name]["launches"] = n
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 21")
+    imported = phase_import(card, replay, seg_qm)
+
     # each path's own count: the serving runs of 4-5, then 12-15
     for name, main_run in (("graph_aggregate", dense),
                            ("segment_aggregate", sparse),
@@ -3395,7 +3642,8 @@ def main() -> int:
         rows[name]["launches"] = (main_run["launches"][name]
                                   + autotune[name] + gat_lstm[name]
                                   + flywheel.get(name, 0)
-                                  + ddp.get(name, 0))
+                                  + ddp.get(name, 0)
+                                  + imported.get(name, 0))
     kernels = []
     for name, source, replaces in (
             ("graph_aggregate", "graph_aggregate",
@@ -3407,6 +3655,10 @@ def main() -> int:
             ("flash_attention", "flash_attention_sm90",
              "src/repro/kernels/flash_attention/kernel.py:79"),
             ("flash_attention_f32", "flash_attention_tf32",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("flash_attention_hd256", "flash_attention_hd256",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("flash_attention_hd256_f32", "flash_attention_hd256",
              "src/repro/kernels/flash_attention/kernel.py:79"),
             ("ssd_scan", "ssd_scan",
              "src/repro/kernels/ssd_scan/kernel.py:48")):

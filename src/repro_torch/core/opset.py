@@ -170,3 +170,57 @@ JAX_PRIMITIVE_MAP: dict[str, OpInfo] = {
     "shift_left": MUL, "shift_right_logical": DIV,
     "shift_right_arithmetic": DIV,
 }
+
+
+# Map of torch call names -> OpInfo, used by the port's importer
+# (`repro_torch.core.hlo_import`), beside the jax primitive map above.
+# Names are a call's `__name__` with the dunder stripped (`__add__`,
+# `__radd__` and `Tensor.add` are `add`; `__getitem__` is `getitem`); a
+# composite call (`softmax`, `log_softmax`, `logaddexp`, `mean`) maps to
+# the op that leads its cost, where the jaxpr holds its primitives.
+TORCH_OP_MAP: dict[str, OpInfo] = {
+    "add": ADD, "sub": SUB, "rsub": SUB, "mul": MUL, "truediv": DIV,
+    "div": DIV, "true_divide": DIV, "pow": POW, "remainder": REM,
+    "mod": REM, "floordiv": DIV, "maximum": MAX, "minimum": MIN,
+    "and": AND, "logical_and": AND, "or": OR, "logical_or": OR,
+    "xor": OR, "invert": NOT, "logical_not": NOT,
+    "neg": NEG, "abs": ABS, "exp": EXP, "log": LOG, "log1p": LOG,
+    "expm1": EXP, "tanh": TANH, "rsqrt": RSQRT, "sqrt": SQRT, "erf": ERF,
+    "sigmoid": LOGISTIC, "sign": SIGN, "floor": FLOOR, "ceil": FLOOR,
+    "round": FLOOR, "sin": SIN, "cos": COS, "logaddexp": LOG,
+    "softmax": EXP, "log_softmax": LOG, "silu": LOGISTIC,
+    "float": CONVERT, "double": CONVERT, "half": CONVERT,
+    "bfloat16": CONVERT, "long": CONVERT, "int": CONVERT, "bool": CONVERT,
+    "to": CONVERT, "type": CONVERT, "type_as": CONVERT,
+    "eq": COMPARE, "ne": COMPARE, "lt": COMPARE, "le": COMPARE,
+    "gt": COMPARE, "ge": COMPARE, "isfinite": COMPARE,
+    "where": SELECT, "masked_fill": SELECT, "tril": SELECT, "triu": SELECT,
+    "clamp": CLAMP, "clip": CLAMP,
+    "expand": BROADCAST, "expand_as": BROADCAST, "broadcast_to": BROADCAST,
+    "zeros": BROADCAST, "ones": BROADCAST, "full": BROADCAST,
+    "empty": BROADCAST, "zeros_like": BROADCAST, "ones_like": BROADCAST,
+    "full_like": BROADCAST, "empty_like": BROADCAST,
+    "new_zeros": BROADCAST, "new_ones": BROADCAST, "new_full": BROADCAST,
+    "new_empty": BROADCAST, "tensor": CONSTANT, "as_tensor": CONSTANT,
+    "reshape": RESHAPE, "view": RESHAPE, "flatten": RESHAPE,
+    "unflatten": RESHAPE, "squeeze": RESHAPE, "unsqueeze": BROADCAST,
+    "permute": TRANSPOSE, "transpose": TRANSPOSE, "t": TRANSPOSE,
+    "T": TRANSPOSE, "mT": TRANSPOSE, "swapaxes": TRANSPOSE,
+    "movedim": TRANSPOSE,
+    "cat": CONCATENATE, "concat": CONCATENATE, "concatenate": CONCATENATE,
+    "stack": CONCATENATE,
+    "getitem": SLICE, "narrow": SLICE, "split": SLICE, "chunk": SLICE,
+    "unbind": SLICE, "pad": PAD, "flip": REVERSE,
+    "clone": COPY, "contiguous": COPY, "detach": COPY, "copy": COPY,
+    "gather": GATHER, "take_along_dim": GATHER, "index_select": GATHER,
+    "embedding": GATHER,
+    "scatter": SCATTER, "scatter_add": SCATTER, "index_add": SCATTER,
+    "index_put": SCATTER, "index_copy": SCATTER, "setitem": SCATTER,
+    "sum": REDUCE_SUM, "mean": REDUCE_SUM, "amax": REDUCE_MAX,
+    "max": REDUCE_MAX, "amin": REDUCE_MIN, "min": REDUCE_MIN,
+    "logsumexp": REDUCE_MAX, "prod": REDUCE_PROD, "all": REDUCE_AND,
+    "any": REDUCE_OR, "cumsum": CUMSUM, "argmax": ARGMAX, "argmin": ARGMAX,
+    "sort": SORT, "argsort": SORT, "topk": TOPK, "arange": IOTA,
+    "bincount": SCATTER,
+    "matmul": DOT, "mm": DOT, "bmm": DOT, "linear": DOT, "einsum": DOT,
+}

@@ -337,14 +337,17 @@ def generate_corpus(num_programs: int = 104, seed: int = 0) -> list[KernelGraph]
 
 def whole_model_graph(target_nodes: int, seed: int = 0, *,
                       arch_blocks: tuple = (),
-                      name: str | None = None) -> KernelGraph:
+                      name: str | None = None,
+                      device="cuda") -> KernelGraph:
     """A whole-program graph (TpuGraphs-scale; DESIGN.md §12): many model
     blocks stitched end-to-end until the graph reaches `target_nodes`.
 
-    Blocks come from the synthetic family generators. `arch_blocks`
-    (imported LM architectures, `repro.core.hlo_import` in the reference)
-    needs the jaxpr importer, which the port does not have yet: passing
-    any raises NotImplementedError. Consecutive blocks are bridged the way real programs chain
+    Blocks come from the synthetic family generators or, with
+    `arch_blocks`, from the LM zoo's programs in turn
+    (`core.hlo_import.import_arch_program`, traced on `device`). An arch
+    that fails to import raises, where the reference silently takes a
+    synthetic block instead (a deliberate divergence, ROADMAP.md Queue
+    3). Consecutive blocks are bridged the way real programs chain
     layers: the previous block's root output is reduced to a scalar
     (`REDUCE_SUM` → shape ``(1,)``) and the next block's first `PARAMETER`
     is replaced by a `BROADCAST` of that scalar to the parameter's shape —
@@ -359,19 +362,23 @@ def whole_model_graph(target_nodes: int, seed: int = 0, *,
     >>> max(abs(d - s) for s, d in g.unique_edges()) > 1   # cross-block edges
     True
     """
-    if arch_blocks:
-        raise NotImplementedError(
-            "arch_blocks needs the jaxpr importer (repro.core.hlo_import), "
-            "which the port does not have yet")
     rng = np.random.default_rng(np.random.SeedSequence([seed, target_nodes]))
+    imported: dict[str, KernelGraph] = {}
     label = name or f"wholemodel_{target_nodes}_{seed}"
     fams = list(FAMILIES)
     nodes: list[Node] = []
     prev_out = None          # global index of the previous block's root
     bi = 0
     while len(nodes) < target_nodes:
-        fam = fams[int(rng.integers(len(fams)))]
-        block = FAMILIES[fam](rng, f"{label}_blk{bi}")
+        if arch_blocks:
+            arch = arch_blocks[bi % len(arch_blocks)]
+            if arch not in imported:
+                from repro_torch.core.hlo_import import import_arch_program
+                imported[arch] = import_arch_program(arch, device=device)
+            block = imported[arch]
+        else:
+            fam = fams[int(rng.integers(len(fams)))]
+            block = FAMILIES[fam](rng, f"{label}_blk{bi}")
         off = len(nodes)
         if prev_out is not None:
             # bridge: scalar summary of the previous block's output

@@ -9,16 +9,23 @@ takes the same [B, S, H, hd] layout):
               or (window) q_pos - k_pos >= window     ->  s = -1e30
     out     = softmax_k(s) @ f32(v), in q's dtype     (q_pos = q_offset + i)
 
-`flash_attention` routes by device and dtype: bf16 CUDA tensors launch
-the tensor-core kernel `csrc/flash_attention_sm90.cu` (wgmma and TMA;
-`launches_tc`), f32 CUDA tensors the split-TF32 tensor-core kernel
-`csrc/flash_attention_tf32.cu` (wgmma, bulk copies; `launches_f32`), each
-on the tensors' device, and CPU tensors run the plain PyTorch version
-`flash_attention_plain`; any other device raises, and a failed build or
-launch raises. `launches` counts every kernel launch (the f32 route's
-key/value split pre-pass and attention kernel count as one). The kernels
-have no backward (nor has the TPU kernel), so both routes refuse q, k or
-v that require grad while grad mode is on (`build.check_no_grad`): a
+`flash_attention` routes by device, dtype and head dim: up to hd 128,
+bf16 CUDA tensors launch the tensor-core kernel
+`csrc/flash_attention_sm90.cu` (wgmma and TMA; `launches_tc`) and f32
+CUDA tensors the split-TF32 tensor-core kernel
+`csrc/flash_attention_tf32.cu` (wgmma, bulk copies; `launches_f32`); for
+128 < hd <= 256 (recurrentgemma-9b's hd 256) both dtypes launch
+`csrc/flash_attention_hd256.cu`, bf16 on the tensor cores by mma.sync
+(`launches_hd256`) and f32 by FMAs on the CUDA cores
+(`launches_hd256_f32`); hd > 256 raises (the reference takes any hd; no
+arch of the zoo goes past 256). Each kernel launches on its tensors'
+device; CPU tensors run the plain PyTorch version
+`flash_attention_plain` at any hd; any other device raises, and a failed
+build or launch raises. `launches` counts every kernel launch (the tf32
+route's key/value split pre-pass and attention kernel count as one). The
+kernels have no backward (nor has the TPU kernel), so every route
+refuses q, k or v that require grad while grad mode is on
+(`build.check_no_grad`): a
 model with `use_pallas_attn` trains on neither device.
 
 The plain version repeats the TPU kernel's arithmetic, not the model's
@@ -39,8 +46,11 @@ from repro_torch.kernels import build
 launches = 0
 launches_tc = 0             # bf16: csrc/flash_attention_sm90.cu
 launches_f32 = 0            # f32: csrc/flash_attention_tf32.cu
+launches_hd256 = 0          # bf16, hd > 128: csrc/flash_attention_hd256.cu
+launches_hd256_f32 = 0      # f32, hd > 128: the same file
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128          # the kernel's shared-memory tiles hold hd <= 128
+TC_HEAD_DIM = 128           # the sm90 and tf32 kernels' tiles hold hd <= 128
+MAX_HEAD_DIM = 256          # the hd256 kernels' tiles hold hd <= 256
 PLAIN_BLOCK_Q = 512         # query rows per step of the plain version
 
 
@@ -88,15 +98,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def _bind(lib, bf16: bool):
-    """(entry point, the f32 kernel's scratch size function or None) of a
-    loaded library of the bf16 or the f32 kernel, argument types set."""
-    fn = lib.flash_attention_sm90 if bf16 else lib.flash_attention_tf32
+# route -> (library, entry point); the tf32 route also takes a scratch
+ROUTES = {"sm90": ("flash_attention_sm90", "flash_attention_sm90"),
+          "tf32": ("flash_attention_tf32", "flash_attention_tf32"),
+          "hd256": ("flash_attention_hd256", "flash_attention_hd256_bf16"),
+          "hd256_f32": ("flash_attention_hd256",
+                        "flash_attention_hd256_f32")}
+
+
+def _bind(lib, route: str):
+    """(entry point, the tf32 kernel's scratch size function or None) of
+    `route` in its loaded library, argument types set."""
+    fn = getattr(lib, ROUTES[route][1])
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = ([p] * (4 if bf16 else 5) + [i] * 6 + [i64] * 12
+    tf32 = route == "tf32"
+    fn.argtypes = ([p] * (5 if tf32 else 4) + [i] * 6 + [i64] * 12
                    + [i] * 3 + [ctypes.c_float, p])
     fn.restype = i
-    if bf16:
+    if not tf32:
         return fn, None
     scratch = lib.flash_attention_tf32_scratch_bytes
     scratch.argtypes = [i] * 4
@@ -104,21 +123,28 @@ def _bind(lib, bf16: bool):
     return fn, scratch
 
 
-_fns: dict[bool, tuple] = {}
+_fns: dict[str, tuple] = {}
 
 
-def _kernel(bf16: bool):
-    """`_bind` of the bf16 or the f32 kernel's library, set up once."""
-    if bf16 not in _fns:
-        _fns[bf16] = _bind(build.load("flash_attention_sm90" if bf16
-                                      else "flash_attention_tf32"), bf16)
-    return _fns[bf16]
+def _kernel(route: str):
+    """`_bind` of `route`, its library built and loaded once."""
+    if route not in _fns:
+        _fns[route] = _bind(build.load(ROUTES[route][0]), route)
+    return _fns[route]
+
+
+def route_for(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes `dtype` at head dim `hd` (a ROUTES key)."""
+    if hd <= TC_HEAD_DIM:
+        return "sm90" if dtype == torch.bfloat16 else "tf32"
+    return "hd256" if dtype == torch.bfloat16 else "hd256_f32"
 
 
 def _check_tma(q, k, v) -> None:
-    """The bf16 kernel reads q, k, v with TMA, whose tensor maps need
-    16-byte aligned base pointers and strides that are multiples of 16
-    bytes, the head-dim row (hd * 2 bytes) included."""
+    """The bf16 kernels read q, k, v with TMA (hd <= 128) or 16-byte
+    loads (hd > 128), which need 16-byte aligned base pointers and
+    strides that are multiples of 16 bytes, the head-dim row (hd * 2
+    bytes) included."""
     hd = q.shape[-1]
     if hd * 2 % 16:
         raise ValueError(f"flash_attention: bf16 head dim {hd} must be a "
@@ -139,7 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KH,hd] (model layout, read through
     their strides; the last axis must be contiguous). f32 or bf16, all
-    three alike; hd <= 128 (in bf16 a multiple of 8, and pointers and
+    three alike; hd <= 256 (in bf16 a multiple of 8, and pointers and
     strides as TMA takes them: `_check_tma`); `q_offset` a Python int
     >= 0. The kernel launches on the tensors' device. Returns [B,Sq,H,hd]
     in q's dtype."""
@@ -185,13 +211,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B * Sq * H == 0:
         return out
-    fn, scratch_bytes = _kernel(bf16)
-    # f32: the kernel's K and V^T hi/lo tiles, written by its pre-pass
-    scratch = None if bf16 else torch.empty(
+    route = route_for(q.dtype, hd)
+    fn, scratch_bytes = _kernel(route)
+    # tf32: the kernel's K and V^T hi/lo tiles, written by its pre-pass
+    scratch = None if scratch_bytes is None else torch.empty(
         scratch_bytes(B, Sk, KH, hd), dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *(() if bf16 else (scratch.data_ptr(),)),
+                 *(() if scratch is None else (scratch.data_ptr(),)),
                  B, Sq, Sk, H, KH, hd, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                  int(causal), 0 if window is None else int(window),
@@ -202,10 +229,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            + (" (20000 + the CUresult of "
                               "cuTensorMapEncodeTiled)" if err >= 20000
                               else ""))
-    global launches, launches_tc, launches_f32
+    global launches, launches_tc, launches_f32, launches_hd256, \
+        launches_hd256_f32
     launches += 1
-    if bf16:
+    if route == "sm90":
         launches_tc += 1
-    else:
+    elif route == "tf32":
         launches_f32 += 1
+    elif route == "hd256":
+        launches_hd256 += 1
+    else:
+        launches_hd256_f32 += 1
     return out

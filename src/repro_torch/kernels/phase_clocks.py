@@ -145,7 +145,7 @@ def _flash_phases() -> None:
     (B=2, S=8192, H=32, KH=8, hd=120, causal, window 4096)."""
     from repro_torch.kernels import flash_attention as fa
     lib = _instrumented("flash_attention_tf32")
-    fn, scratch_bytes = fa._bind(lib, bf16=False)
+    fn, scratch_bytes = fa._bind(lib, "tf32")
     B, S, H, KH, hd, window = 2, 8192, 32, 8, 120, 4096
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(B, S, H, hd, generator=gen).cuda()

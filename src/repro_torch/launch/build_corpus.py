@@ -28,9 +28,14 @@ Workers fork/spawn from this module; synthetic generation and the oracle
 are pure numpy, so neither it nor its workers import torch. The default
 ``--mp-context auto`` forks when that is safe (CUDA not initialised in
 the parent: a child forked after it cannot use the card) and spawns
-otherwise. ``--import-archs`` (architectures imported from the model
-zoo's graphs) needs the program importer, ROADMAP Queue 1 item 6, and
-raises until it is ported.
+otherwise. ``--import-archs`` adds one task per model-zoo architecture,
+its smoke-scale `loss_fn` traced into a program by
+`repro_torch.core.hlo_import` on ``--device`` (cuda by default, cpu on
+request; the program is the same on both):
+
+  PYTHONPATH=src python -m repro_torch.launch.build_corpus \\
+      --out /tmp/corp --programs 4 --import-archs yi-9b mamba2-2.7b \\
+      --device cpu
 """
 from __future__ import annotations
 
@@ -58,12 +63,15 @@ DEFAULT_FUSION = {"configs_per_program": 12, "max_kernel_nodes": 64}
 # ----------------------------------------------------------------------------
 # Worker side
 # ----------------------------------------------------------------------------
-def _build_program(task: tuple, seed: int):
+def _build_program(task: tuple, seed: int, device: str):
     """Materialize one task's pre-fusion program graph."""
     if task[0] == "synthetic":
         from repro_torch.data.synthetic import generate_program
         _, family, idx = task
         return generate_program(family, idx, seed)
+    if task[0] == "import":
+        from repro_torch.core.hlo_import import import_arch_program
+        return import_arch_program(task[1], device=device)
     raise ValueError(f"unknown task {task!r}")
 
 
@@ -71,14 +79,14 @@ def _run_task(args: tuple) -> dict:
     """Build all requested kinds' records for one program; returns packed
     (JSON-able) records so pickling back to the merger is cheap and the
     parent never re-hashes kernels."""
-    task, kinds, seed, tile_opts, fusion_opts = args
+    task, kinds, seed, tile_opts, fusion_opts, device = args
     from repro_torch.core.simulator import TPUSimulator
     from repro_torch.data.fusion import apply_fusion, default_fusion
     from repro_torch.data.fusion_dataset import build_fusion_records
     from repro_torch.data.tile_dataset import build_tile_records
 
     sim = TPUSimulator()
-    program = _build_program(task, seed)
+    program = _build_program(task, seed, device)
     out: dict = {"task": task, "program": program.program}
     if "tile" in kinds:
         kernels = apply_fusion(program, default_fusion(program))
@@ -133,14 +141,12 @@ def build_corpus(out_dir: str, *, kinds=("tile", "fusion"), programs: int = 48,
                  workers: int = 1, shard_records: int = 128,
                  tile_opts: dict | None = None,
                  fusion_opts: dict | None = None, force: bool = False,
-                 mp_context: str = "auto", quiet: bool = False) -> dict:
+                 mp_context: str = "auto", quiet: bool = False,
+                 device: str = "cuda") -> dict:
     """Build one store per kind under `out_dir`/<kind>. Returns
     {kind: manifest}. Skips kinds whose stored spec already matches
-    (manifest-hash no-op) unless `force`."""
-    if import_archs:
-        raise NotImplementedError(
-            "import_archs needs the program importer (core/hlo_import.py), "
-            "which is not ported yet: ROADMAP Queue 1 item 6")
+    (manifest-hash no-op) unless `force`. `import_archs` are traced on
+    `device`."""
     log = (lambda *a: None) if quiet else \
         (lambda *a: print(*a, file=sys.stderr))
     specs = {k: make_spec(k, programs=programs, seed=seed,
@@ -164,9 +170,11 @@ def build_corpus(out_dir: str, *, kinds=("tile", "fusion"), programs: int = 48,
         return manifests
 
     tasks = [("synthetic", fam, idx) for fam, idx in corpus_plan(programs)]
+    tasks += [("import", arch) for arch in sorted(import_archs)]
     job_args = [(t, tuple(todo), seed,
                  specs.get("tile", {}).get("tile", DEFAULT_TILE),
-                 specs.get("fusion", {}).get("fusion", DEFAULT_FUSION))
+                 specs.get("fusion", {}).get("fusion", DEFAULT_FUSION),
+                 device)
                 for t in tasks]
     writers = {k: CorpusWriter(os.path.join(out_dir, k), k, spec=specs[k],
                                shard_records=shard_records)
@@ -219,8 +227,11 @@ def main(argv=None) -> int:
                     help="synthetic programs (corpus_plan schedule)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--import-archs", nargs="*", default=[],
-                    help="model-zoo architectures to import: not ported "
-                         "yet (ROADMAP Queue 1 item 6)")
+                    help="model-zoo architectures to import (their smoke "
+                         "loss_fn traced by core.hlo_import)")
+    ap.add_argument("--device", default="cuda",
+                    help="where --import-archs traces: cuda (default; "
+                         "raises without a card) or cpu")
     ap.add_argument("--workers", type=int,
                     default=max(os.cpu_count() or 1, 1))
     ap.add_argument("--shard-records", type=int, default=128)
@@ -245,7 +256,7 @@ def main(argv=None) -> int:
                    "max_kernel_nodes": args.max_kernel_nodes},
         fusion_opts={"configs_per_program": args.fusion_configs,
                      "max_kernel_nodes": args.max_kernel_nodes},
-        force=args.force, mp_context=args.mp_context)
+        force=args.force, mp_context=args.mp_context, device=args.device)
     for kind, m in manifests.items():
         if args.verify:
             StreamingCorpus.open(os.path.join(args.out, kind), verify=True)

@@ -2,12 +2,12 @@
 
 Port of `repro.launch.serve`, for the architectures whose layers the
 port has and whose prompts are tokens: h2o-danube-3-4b, yi-9b, yi-34b,
-qwen3-14b, granite-moe-3b-a800m and mamba2-2.7b. The loop feeds prompts
-as `{"tokens"}` alone, as the reference's does; musicgen-large (frame
-embeddings) and llava-next-34b (a patch prefix) need more, and are
-refused with a ValueError that names the missing input (the reference
-fails there with a KeyError). recurrentgemma-9b and deepseek-v3-671b
-wait for their mixers (ROADMAP.md Queue 1 items 6c, 6e) and raise
+qwen3-14b, granite-moe-3b-a800m, mamba2-2.7b and recurrentgemma-9b. The
+loop feeds prompts as `{"tokens"}` alone, as the reference's does;
+musicgen-large (frame embeddings) and llava-next-34b (a patch prefix)
+need more, and are refused with a ValueError that names the missing
+input (the reference fails there with a KeyError). deepseek-v3-671b
+waits for its mixer (ROADMAP.md Queue 1 item 6e) and raises
 NotImplementedError.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \

@@ -1,9 +1,10 @@
 """Layers of the LM zoo: RMSNorm, rotary embedding, GQA attention
 (full-causal or sliding-window, optional qk-norm), the SwiGLU MLP, the
-token-choice MoE ffn and the Mamba2 SSD mixer.
+token-choice MoE ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU
+mixer.
 
-Port of `repro.models.layers` but for MLA and RG-LRU, which wait for
-later slices (ROADMAP.md Queue 1 items 6c and 6e). Parameters are dicts
+Port of `repro.models.layers` but for MLA, which waits for a later
+slice (ROADMAP.md Queue 1 item 6e). Parameters are dicts
 of tensors laid out as the reference's pytrees. Train and prefill attend
 with `chunked_attention` (an online softmax over KV blocks) or, when
 `cfg.use_pallas_attn` is set, with the hand-written flash-attention
@@ -13,7 +14,10 @@ The MoE ffn dispatches by a stable sort into per-expert capacity slots
 and drops what overflows, as the reference does; its expert products are
 batched matmuls. The SSD mixer takes the reference's chunked algorithm,
 its inter-chunk `lax.scan` a Python loop over chunks; like the
-reference it does not call the `ssd_scan` kernel. The reference's
+reference it does not call the `ssd_scan` kernel. The RG-LRU's linear
+recurrence mirrors `jax.lax.associative_scan`'s odd/even recursion, so
+that it combines in the reference's order in about 2·log2(S) elementwise
+passes, not a loop over S. The reference's
 sharding annotations (`constrain`) have no counterpart here and are
 dropped.
 
@@ -28,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hlo_import import loop
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -115,7 +120,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.zeros((B, KH, rep, S), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KH, rep, S, hd), dtype=torch.float32,
                       device=q.device)
-    for bi in range(nb):
+    for bi in loop(nb):
         # the last block may be ragged: the reference pads it with keys
         # that it masks, which changes no row that sees a key
         kq = k[:, bi * blk:(bi + 1) * blk].float()
@@ -531,7 +536,7 @@ def ssd_mix_chunked(cfg: ModelConfig, X, Bm, Cm, dlog, h0=None):
     h = (torch.zeros((B_, H, N, P), dtype=torch.float32, device=X.device)
          if h0 is None else h0.float())
     before = []
-    for c in range(nc):
+    for c in loop(nc):
         before.append(h)                                      # state BEFORE
         h = h * chunk_decay[:, c, :, None, None] + S_state[:, c]
     h_before = torch.stack(before, dim=1)                     # [B,nc,H,N,P]
@@ -634,3 +639,120 @@ def ssd_apply_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     cache["state"].copy_(state)
     cache["conv"].copy_(new_conv)
     return _ssd_out(params, cfg, Y, z, x), cache
+
+
+# ----------------------------------------------------------------------------
+# RG-LRU: RecurrentGemma's recurrent mixer
+# ----------------------------------------------------------------------------
+def rglru_init(generator, cfg: ModelConfig, lead: tuple = (),
+               device="cpu") -> dict:
+    rc = cfg.rglru
+    D = cfg.d_model
+    W = rc.lru_width or D
+    dt = _dt(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_x": _winit(generator, lead + (D, W), dt, device=device),
+        "w_gate": _winit(generator, lead + (D, W), dt, device=device),
+        "conv_w": _winit(generator, lead + (rc.conv_width, W),
+                         torch.float32, 0.2, device=device),
+        "conv_b": torch.zeros(lead + (W,), **f32),
+        "w_rg": _winit(generator, lead + (W, W), dt, device=device),
+        "w_ig": _winit(generator, lead + (W, W), dt, device=device),
+        "lam": torch.full(lead + (W,), 2.2, **f32),       # a ~ 0.9 at init
+        "w_out": _winit(generator, lead + (W, D), dt,
+                        scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1)),
+                        device=device),
+    }
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """[B, n_e, W] and [B, n_o, W] (n_e = n_o or n_o + 1) -> [B, n_e +
+    n_o, W] with `even` at positions 0, 2, ... (jax's `_interleave`)."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([out, even[:, n:]], dim=1) if even.shape[1] > n \
+        else out
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of (a, b) along axis 1 under combine((a1, b1),
+    (a2, b2)) = (a1·a2, a2·b1 + b2), by `jax.lax.associative_scan`'s
+    recursion: combine adjacent pairs, scan those, then combine each odd
+    result with the next even element; so each h_t takes the reference's
+    products in the reference's order."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a_even, b_even = a[:, 0:-1:2], b[:, 0:-1:2]
+    a_odd, b_odd = a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = _assoc_scan(a_even * a_odd, a_odd * b_even + b_odd)
+    a_next, b_next = a[:, 2::2], b[:, 2::2]
+    if n % 2 == 0:
+        ea, eb = odd_a[:, :-1], odd_b[:, :-1]
+    else:
+        ea, eb = odd_a, odd_b
+    even_a = torch.cat([a[:, :1], ea * a_next], dim=1)
+    even_b = torch.cat([b[:, :1], a_next * eb + b_next], dim=1)
+    return _interleave(even_a, odd_a), _interleave(even_b, odd_b)
+
+
+def _rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor | None = None) -> torch.Tensor:
+    """h_t = exp(log_a_t)·h_{t-1} + b_t over S. log_a, b: [B,S,W]; h0
+    [B,W] folds into the first step, as the reference folds it."""
+    a = torch.exp(log_a)
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _assoc_scan(a, b)[1]
+
+
+def rglru_core(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               conv_state=None, h0=None):
+    """x: [B,S,D] -> (y [B,S,D], the new conv state: the last W-1 conv
+    inputs in x's dtype, h at the last step f32 [B,W]). The projections
+    stay in x's dtype; the conv output, cast to x's dtype, takes the two
+    gate products in f32."""
+    rc = cfg.rglru
+    u = x @ params["w_x"]
+    gate = x @ params["w_gate"]
+    conv_out, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"],
+                                      conv_state)
+    uc = conv_out.float()
+    r = torch.sigmoid(uc @ params["w_rg"].float())
+    i = torch.sigmoid(uc @ params["w_ig"].float())
+    log_a = -rc.c_exponent * _softplus(params["lam"]) * r      # [B,S,W]
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    h = _rglru_scan(log_a, beta * (i * uc), h0)
+    y = h.to(x.dtype) * _silu(gate)
+    return y @ params["w_out"], new_conv, h[:, -1]
+
+
+def rglru_apply_train(params: dict, cfg: ModelConfig,
+                      x: torch.Tensor) -> torch.Tensor:
+    return rglru_core(params, cfg, x)[0]
+
+
+def rglru_cache_init(cfg: ModelConfig, batch: int, lead: tuple = (),
+                     device="cpu") -> dict:
+    rc = cfg.rglru
+    W = rc.lru_width or cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"state": torch.zeros(lead + (batch, W), **f32),
+            "conv": torch.zeros(lead + (batch, rc.conv_width - 1, W), **f32)}
+
+
+def rglru_apply_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                       cache: dict, pos) -> tuple[torch.Tensor, dict]:
+    """One token; x: [B,1,D]; `pos` is not used. Writes the new state and
+    conv inputs into `cache` in place (the reference returns them) and
+    returns (y, cache). The conv inputs keep the cache's dtype: an f32
+    cache from `rglru_cache_init` holds a bf16 model's inputs exactly,
+    where the reference's would turn bf16 (as `ssd_apply_decode`)."""
+    del pos
+    out, new_conv, h_last = rglru_core(params, cfg, x,
+                                       conv_state=cache["conv"],
+                                       h0=cache["state"])
+    cache["state"].copy_(h_last)
+    cache["conv"].copy_(new_conv)
+    return out, cache

@@ -1,16 +1,17 @@
 """Generic LM assembled from config stacks: `repro.models.lm` for the
-mixers `attn`, `swa` and `ssd` and the ffns `mlp`, `moe` and `none`,
-with the frame-embedding (`cfg.embed_inputs`) and patch-prefix
+mixers `attn`, `swa`, `ssd` and `rglru` and the ffns `mlp`, `moe` and
+`none`, with the frame-embedding (`cfg.embed_inputs`) and patch-prefix
 (`cfg.num_patch_tokens`) front ends. It runs h2o-danube-3-4b, yi-9b,
-yi-34b, qwen3-14b, granite-moe-3b-a800m, musicgen-large, llava-next-34b
-and mamba2-2.7b.
+yi-34b, qwen3-14b, granite-moe-3b-a800m, musicgen-large, llava-next-34b,
+mamba2-2.7b and recurrentgemma-9b.
 
 Parameters keep the reference's tree: `embed`, `final_norm`, `lm_head`
 (unless tied) and `stacks`, a list with one entry per stack, each a
 tuple with one dict per pattern element whose leaves carry a leading
 `[repeats]` axis (the reference's `vmap` over layer keys). The
 reference scans the stacked layers with `jax.lax.scan`; the port loops
-over them in Python (`cfg.scan_layers` and `cfg.scan_microbatch`, the
+over them in Python, through `core.hlo_import.scan`, a plain loop unless
+the importer records (`cfg.scan_layers` and `cfg.scan_microbatch`, the
 reference's switch between a scan and an unrolled loop, name the same
 loop here and change nothing). In a differentiated forward each layer is
 rematerialized, `torch.utils.checkpoint(..., use_reentrant=False)`,
@@ -30,10 +31,10 @@ Entry points:
   prefill_step_fn(cfg, capacity)        — (params, batch) -> (logits, cache)
   decode_step_fn(cfg)                   — (params, cache, tokens, pos) -> ...
   init_cache(cfg, batch, capacity)      — empty decode caches
-The RG-LRU and MLA mixers wait for later slices (ROADMAP.md Queue 1
-items 6c and 6e): recurrentgemma-9b and deepseek-v3-671b raise
-NotImplementedError. The reference's `init_abstract`, `cache_abstract`
-and `analytic_param_count` are not ported yet (item 6f).
+The MLA mixer waits for a later slice (ROADMAP.md Queue 1 item 6e):
+deepseek-v3-671b raises NotImplementedError. The reference's
+`init_abstract`, `cache_abstract` and `analytic_param_count` are not
+ported yet (item 6f).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import hlo_import
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -52,7 +54,7 @@ from repro_torch.training.optim import AdamWConfig, adamw_init, \
     adamw_update_, divide, tree_leaves, tree_map, tree_unflatten
 
 _ATTN = ("attn", "swa")
-_MIXERS = _ATTN + ("ssd",)
+_MIXERS = _ATTN + ("ssd", "rglru")
 
 
 def _parse(elem: str) -> tuple[str, str]:
@@ -72,7 +74,7 @@ def _unported(what: str):
 def _check_elem(elem: str) -> tuple[str, str]:
     mixer, ffn = _parse(elem)
     if mixer not in _MIXERS:
-        if mixer in ("mla", "rglru"):
+        if mixer == "mla":
             raise _unported(f"the {mixer!r} mixer")
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("mlp", "moe", "none"):
@@ -107,6 +109,8 @@ def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
     p: dict[str, Any] = {"norm1": L._norm_init(cfg.d_model, lead, device)}
     if mixer == "ssd":
         p["mixer"] = L.ssd_init(generator, cfg, lead, device)
+    elif mixer == "rglru":
+        p["mixer"] = L.rglru_init(generator, cfg, lead, device)
     else:
         p["mixer"] = L.attn_init(generator, cfg, lead, device)
     if ffn != "none":
@@ -132,6 +136,8 @@ def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if mixer == "ssd":
         h = L.ssd_apply_train(params["mixer"], cfg, h)
+    elif mixer == "rglru":
+        h = L.rglru_apply_train(params["mixer"], cfg, h)
     else:
         h = L.attn_apply_train(params["mixer"], cfg, h,
                                window=_mixer_window(cfg, mixer))
@@ -143,6 +149,8 @@ def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
     mixer, _ = _check_elem(elem)
     if mixer == "ssd":
         return L.ssd_cache_init(cfg, batch, lead, device)
+    if mixer == "rglru":
+        return L.rglru_cache_init(cfg, batch, lead, device)
     return L.attn_cache_init(cfg, batch, capacity,
                              window=_mixer_window(cfg, mixer), lead=lead,
                              device=device)
@@ -155,6 +163,9 @@ def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
     if mixer == "ssd":
         h, new_cache = L.ssd_apply_decode(params["mixer"], cfg, h, cache,
                                           pos)
+    elif mixer == "rglru":
+        h, new_cache = L.rglru_apply_decode(params["mixer"], cfg, h, cache,
+                                            pos)
     else:
         h, new_cache = L.attn_apply_decode(params["mixer"], cfg, h, cache,
                                            pos,
@@ -173,6 +184,10 @@ def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
         h, cache = L.ssd_apply_train(params["mixer"], cfg, h,
                                      return_state=True)
         return _ffn(params, cfg, ffn, x + h), cache
+    if mixer == "rglru":
+        h, conv, h_last = L.rglru_core(params["mixer"], cfg, h)
+        return _ffn(params, cfg, ffn, x + h), {"state": h_last.float(),
+                                               "conv": conv}
     window = _mixer_window(cfg, mixer)
     positions = torch.arange(h.shape[1], device=h.device)
     q, k, v = L.attn_qkv(params["mixer"], cfg, h, positions)
@@ -241,13 +256,13 @@ def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     layer is rematerialized unless `cfg.remat == "none"`."""
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for stack, elem_params in zip(cfg.stacks, params["stacks"]):
-        for i in range(stack.repeats):
-            for elem, p in zip(stack.pattern, elem_params):
+        for layer in hlo_import.scan(elem_params, stack.repeats):
+            for elem, p in zip(stack.pattern, layer):
                 if remat:
-                    x = checkpoint(block_apply_train, _index(p, i), cfg,
-                                   elem, x, use_reentrant=False)
+                    x = checkpoint(block_apply_train, p, cfg, elem, x,
+                                   use_reentrant=False)
                 else:
-                    x = block_apply_train(_index(p, i), cfg, elem, x)
+                    x = block_apply_train(p, cfg, elem, x)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

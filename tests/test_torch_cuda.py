@@ -423,6 +423,45 @@ def test_flash_attention_f32_counts_its_launches():
         before[0] + 3, before[1], before[2] + 3)
 
 
+# 128 < hd <= 256 (csrc/flash_attention_hd256.cu), held element by
+# element as chip_smoke.py holds it: bf16 |out - ref| <= 2^-6·|ref| +
+# 1e-5, f32 2e-5·|ref| + 5e-6; (B, Sq, Sk, H, KH, hd, causal, window,
+# q_offset): recurrentgemma-9b's MQA with a window, ragged rows, a
+# q_offset with Sq < Sk, non-causal, hd 136 and 192 (the second slab of
+# columns partly past hd)
+FLASH_HD256_CASES = [
+    (2, 300, 300, 4, 1, 256, True, 100, 0),
+    (1, 256, 256, 2, 1, 256, True, None, 0),
+    (1, 40, 300, 4, 2, 256, True, 120, 260),
+    (1, 130, 130, 2, 2, 256, False, None, 0),
+    (1, 200, 200, 4, 1, 136, True, 64, 0),
+    (2, 96, 96, 2, 1, 192, False, 40, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_HD256_CASES, ids=str)
+def test_flash_attention_hd256_matches_plain(case, dtype):
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, window, q_offset = case[6:]
+    q, k, v = _flash_cuda_inputs(case, getattr(torch, dtype), seed=case[5])
+    bf16 = dtype == "bfloat16"
+    before = fa.launches, fa.launches_hd256, fa.launches_hd256_f32
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    assert (fa.launches, fa.launches_hd256, fa.launches_hd256_f32) == (
+        before[0] + 1, before[1] + bf16, before[2] + (not bf16))
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    rtol, atol = (2.0 ** -6, 1e-5) if bf16 else (2e-5, 5e-6)
+    worst = float(((out.float() - ref.float()).abs()
+                   / (rtol * ref.float().abs() + atol)).max())
+    assert worst <= 1.0, worst
+
+
 def _every_kernel(dev):
     """One call of every kernel wrapper on `dev`, beside its plain
     version: [(label, out, ref, exact)]."""
@@ -505,7 +544,7 @@ def test_flash_attention_cuda_kernel_reads_strided_layouts(dtype):
 def test_flash_attention_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     _need_card()
     from repro_torch.kernels import flash_attention as fa
-    q = torch.zeros((1, 8, 2, 160), device="cuda")
+    q = torch.zeros((1, 8, 2, 264), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 16), device="cuda")

@@ -21,7 +21,7 @@ On the CPU, with inputs made by numpy from a seed:
   rebuild;
 * the CLIs: `train --from-store/--deltas` and its refusals,
   `build_corpus` (1 and 2 workers, the JAX builder's hash,
-  `--import-archs` refused), `launch.flywheel --device cpu` twice.
+  `--import-archs` on the CPU), `launch.flywheel --device cpu` twice.
 """
 import dataclasses
 import doctest
@@ -702,11 +702,21 @@ def test_build_corpus_hash_is_independent_of_workers_and_package(tmp_path):
     assert again["tile"]["manifest_hash"] == one["tile"]["manifest_hash"]
 
 
-def test_build_corpus_refuses_import_archs(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PBC.main(["--out", str(tmp_path / "x"), "--programs", "1",
-                  "--import-archs", "yi-9b"])
-    assert not os.path.exists(tmp_path / "x")
+def test_build_corpus_refuses_import_archs(tmp_path, capsys):
+    """`--import-archs` works now (the importer is ported): the imported
+    program's records join the synthetic ones, deterministically (the
+    same manifest hash from a second build)."""
+    argv = ["--programs", "1", "--import-archs", "yi-9b", "--device", "cpu",
+            "--workers", "1", "--kind", "fusion", "--fusion-configs", "2"]
+    PBC.main(["--out", str(tmp_path / "x")] + argv)
+    PBC.main(["--out", str(tmp_path / "y")] + argv)
+    one = PBC.load_manifest(str(tmp_path / "x" / "fusion"))
+    two = PBC.load_manifest(str(tmp_path / "y" / "fusion"))
+    assert one["spec"]["import_archs"] == ["yi-9b"]
+    assert one["manifest_hash"] == two["manifest_hash"]
+    programs = {r.program for r in PBC.StreamingCorpus.open(
+        str(tmp_path / "x" / "fusion"))}
+    assert "arch_yi-9b" in programs and len(programs) == 2
 
 
 def test_pick_context_forks_only_before_cuda(monkeypatch):

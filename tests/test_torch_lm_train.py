@@ -42,7 +42,7 @@ from repro_torch.training import optim as PO
 
 ARCHS = ["h2o-danube-3-4b", "yi-9b", "yi-34b", "qwen3-14b",
          "granite-moe-3b-a800m", "musicgen-large", "llava-next-34b",
-         "mamba2-2.7b"]
+         "mamba2-2.7b", "recurrentgemma-9b"]
 B, S = 4, 32
 LOSS_RTOL = 1e-5
 
@@ -346,9 +346,10 @@ def test_cli_trains_an_lm_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "musicgen-large",
-                                  "llava-next-34b", "mamba2-2.7b"])
+                                  "llava-next-34b", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
 def test_cli_trains_the_zoo_archs_on_the_cpu(arch, capsys):
-    """`train lm` on the MoE, front-end and SSD archs: make_batch gives
+    """`train lm` on the MoE, front-end, SSD and RG-LRU archs: make_batch gives
     each its inputs (llava: --seq 32 counts its 16 patch positions)."""
     from repro_torch.launch.train import main
     main(["lm", "--arch", arch, "--smoke", "--steps", "2", "--seq", "32",

@@ -838,7 +838,7 @@ def test_cli_trains_and_writes_a_checkpoint(tmp_path, capsys):
 @pytest.mark.parametrize("argv,exc,match", [
     (["cost-model", "--dp", "-1"], SystemExit, "--dp must be >= 0"),
     (["cost-model", "--dp", "2", "--mp", "0"], SystemExit, "--mp >= 1"),
-    (["lm", "--arch", "recurrentgemma-9b", "--smoke"],
+    (["lm", "--arch", "deepseek-v3-671b", "--smoke"],
      NotImplementedError, "item 6")])
 def test_cli_refuses_unported(argv, exc, match):
     from repro_torch.launch.train import main
