@@ -69,7 +69,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
              and 64, q x 1 and x 3), at the full-causal bf16 layers of
              granite-moe-3b-a800m (H=24, KH=8, hd=64), musicgen-large
              (32, 32, 64) and llava-next-34b (56, 8, 128), and the hd-256
-             routes (bf16 on the tensor cores by mma.sync, f32 on the CUDA
+             routes (bf16 on the tensor cores by wgmma, f32 on the CUDA
              cores) at recurrentgemma-9b's local attention (H=16, KH=1,
              hd=256, window 2048), timed beside PyTorch's
              scaled_dot_product_attention on the same inputs (the
@@ -1136,7 +1136,7 @@ FLASH_CASES = (
      5),
     ("llava-layer", LM_BATCH, LM_SEQ, 56, 8, 128, True, None, "bfloat16", 5),
     # recurrentgemma-9b's local attention (MQA, hd 256, window 2048): the
-    # hd-256 routes, bf16 (mma.sync) and f32 (CUDA-core FMAs)
+    # hd-256 routes, bf16 (wgmma) and f32 (CUDA-core FMAs)
     ("rg-layer", LM_BATCH, LM_SEQ, 16, 1, 256, True, 2048, "bfloat16", 3),
     ("rg-layer-f32", LM_BATCH, LM_SEQ, 16, 1, 256, True, 2048, "float32", 2))
 # q is drawn N(0, 1) times this (1 elsewhere): q x 3 makes the scores
@@ -1159,7 +1159,9 @@ SSD_SHAPE = (2, 32, 80, 128, 64)    # B, nc, H, N, P: Mamba2-2.7b, 8192 tokens
 # tolerance and atol 5.6x the largest error seen on the card (8.9e-7).
 FLASH_TOL = {"bfloat16": (2.0 ** -6, 1e-5), "float32": (2e-5, 5e-6)}
 # keys left out by the planted faults (and query rows held apart): half
-# of the bf16 kernel's 128-key tile, finer than any tile it skips
+# of the hd <= 128 bf16 kernel's 128-key tile, one key tile of the
+# hd-256 bf16 kernel and of the hd <= 128 f32 kernel, two of the hd-256
+# f32 kernel's 32-key tiles
 FAULT_TILE = 64
 # One layer's attention output at the full shape, kernel vs.
 # chunked_attention (the model's path with the flag off), as
@@ -1319,7 +1321,7 @@ def check_flash_attention() -> dict:
                       if route_name == "tf32" else "")
         route = {"sm90": "flash_attention_sm90.cu, tensor cores",
                  "tf32": "flash_attention_tf32.cu, split-TF32 tensor cores",
-                 "hd256": "flash_attention_hd256.cu, mma.sync tensor cores",
+                 "hd256": "flash_attention_hd256.cu, wgmma tensor cores",
                  "hd256_f32": "flash_attention_hd256.cu, fp32 CUDA cores"}[
             route_name]
         log(f"[zoo-kernels] flash_attention {label} B={B} S={S} H={H} "
@@ -1624,14 +1626,16 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None,
 
 def _log_profile(tag, fn, top=5, host_ops=True) -> float:
     """Profiles one `fn()` (`device_profile`): logs device seconds and
-    the `top` kernels by device time; returns the device seconds."""
+    the `top` kernels by device time, then the flash kernels wherever
+    they rank (the pass's attention share); returns the device seconds."""
     prof, wall = device_profile(fn, host_ops)
     busy = sum(us for _, us in prof.values()) / 1e6
     log(f"[{tag}] profiled pass: wall {wall:.3f} s, device {busy:.3f} s "
         f"({busy / wall:.1%}), {sum(c for c, _ in prof.values())} kernel "
         f"launches; top:")
-    for name, (count, us) in sorted(prof.items(),
-                                    key=lambda kv: -kv[1][1])[:top]:
+    ranked = sorted(prof.items(), key=lambda kv: -kv[1][1])
+    for name, (count, us) in ranked[:top] + [
+            kv for kv in ranked[top:] if "flash" in kv[0]]:
         log(f"[{tag}]   {us / 1e3:10.3f} ms {count:5d}x  {_short(name)}")
     return busy
 

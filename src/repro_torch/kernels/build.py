@@ -26,7 +26,7 @@ SOURCES = ("graph_aggregate", "segment_aggregate", "flash_attention_tf32",
            "flash_attention_sm90", "flash_attention_hd256", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("tf32_mma.cuh",)
+_HEADERS = ("tf32_mma.cuh", "wgmma_bf16.cuh")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -15,8 +15,8 @@ bf16 CUDA tensors launch the tensor-core kernel
 CUDA tensors the split-TF32 tensor-core kernel
 `csrc/flash_attention_tf32.cu` (wgmma, bulk copies; `launches_f32`); for
 128 < hd <= 256 (recurrentgemma-9b's hd 256) both dtypes launch
-`csrc/flash_attention_hd256.cu`, bf16 on the tensor cores by mma.sync
-(`launches_hd256`) and f32 by FMAs on the CUDA cores
+`csrc/flash_attention_hd256.cu`, bf16 on the tensor cores by wgmma with
+TMA (`launches_hd256`) and f32 by FMAs on the CUDA cores
 (`launches_hd256_f32`); hd > 256 raises (the reference takes any hd; no
 arch of the zoo goes past 256). Each kernel launches on its tensors'
 device; CPU tensors run the plain PyTorch version
@@ -141,10 +141,9 @@ def route_for(dtype: torch.dtype, hd: int) -> str:
 
 
 def _check_tma(q, k, v) -> None:
-    """The bf16 kernels read q, k, v with TMA (hd <= 128) or 16-byte
-    loads (hd > 128), which need 16-byte aligned base pointers and
-    strides that are multiples of 16 bytes, the head-dim row (hd * 2
-    bytes) included."""
+    """The bf16 kernels read q, k, v with TMA, which needs 16-byte
+    aligned base pointers and strides that are multiples of 16 bytes,
+    the head-dim row (hd * 2 bytes) included."""
     hd = q.shape[-1]
     if hd * 2 % 16:
         raise ValueError(f"flash_attention: bf16 head dim {hd} must be a "

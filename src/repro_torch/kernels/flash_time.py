@@ -1,7 +1,9 @@
-"""Times the f32 route of `flash_attention` on the card, and holds it
-against the plain version element by element.
+"""Times the f32 route of `flash_attention` on the card (or, with
+`--route hd256`, the hd-256 bf16 route), and holds it against the plain
+version element by element.
 
     python3 src/repro_torch/kernels/flash_time.py [--src DIR] [--iters N]
+        [--route f32|hd256]
 
 Imports `repro_torch` from `--src` (default: this checkout's `src/`), so
 the same script times another checkout's kernel, an earlier version say,
@@ -12,9 +14,11 @@ after a warm-up, device time per call from the profiler (the sum of the
 call's kernels), and the worst |out - ref| / (2e-5·|ref| + 5e-6) against
 `flash_attention_plain` (TF32 off). Shapes: h2o-danube-3-4b's layer in
 f32 (B=2, S=8192, H=32, KH=8, hd=120, causal, window 4096) and the f32
-check shape of `chip_smoke.py` (B=1, S=1024, window 256).
+check shape of `chip_smoke.py` (B=1, S=1024, window 256); for hd256,
+recurrentgemma-9b's local attention in bf16 (B=2, S=8192, H=16, KH=1,
+hd=256, causal, window 2048), held to 2^-6·|ref| + 1e-5.
 
-Then, at the check shape, for seeds 0-3 and q scaled by 1 and by 3, the
+Then, for the f32 route, at the check shape, for seeds 0-3 and q scaled by 1 and by 3, the
 same worst ratio between each pair of: the kernel, the plain version,
 PyTorch's f32 SDPA and an exact attention in float64: how far the plain
 version itself sits from exact arithmetic under the f32 limit. Needs a
@@ -32,6 +36,8 @@ import sys
 SHAPES = {"layer": (2, 8192, 32, 8, 120, True, 4096),
           "check": (1, 1024, 32, 8, 120, True, 256)}
 RTOL, ATOL = 2e-5, 5e-6
+HD256_SHAPES = {"rg-layer": (2, 8192, 16, 1, 256, True, 2048)}
+HD256_RTOL, HD256_ATOL = 2.0 ** -6, 1e-5
 
 
 def main() -> None:
@@ -41,6 +47,7 @@ def main() -> None:
         os.path.join(here, "..", "..")))
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--route", choices=("f32", "hd256"), default="f32")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -55,17 +62,22 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     label = args.label or args.src
+    f32 = args.route == "f32"
+    dtype = torch.float32 if f32 else torch.bfloat16
+    rtol, atol = (RTOL, ATOL) if f32 else (HD256_RTOL, HD256_ATOL)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, (B, S, H, KH, hd, causal, window) in SHAPES.items():
-        q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
-        k = torch.randn((B, S, KH, hd), generator=gen, device="cuda")
-        v = torch.randn((B, S, KH, hd), generator=gen, device="cuda")
+    for name, (B, S, H, KH, hd, causal, window) in (
+            SHAPES if f32 else HD256_SHAPES).items():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((B, S, H, hd), (B, S, KH, hd),
+                                 (B, S, KH, hd)))
 
         def run():
             return fa.flash_attention(q, k, v, causal=causal, window=window)
         out = run()
         ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-        worst = float(((out - ref).abs() / (RTOL * ref.abs() + ATOL)).max())
+        out, ref = out.float(), ref.float()
+        worst = float(((out - ref).abs() / (rtol * ref.abs() + atol)).max())
         del out, ref
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -87,11 +99,13 @@ def main() -> None:
         device_ms = sum(ms for _, ms in kernels.values()) / args.iters
         print(json.dumps({
             "tree": label, "shape": name, "B": B, "S": S, "H": H, "KH": KH,
-            "hd": hd, "window": window, "call_ms": call_ms,
+            "hd": hd, "window": window, "dtype": str(dtype)[6:],
+            "call_ms": call_ms,
             "device_ms": device_ms, "kernels": kernels,
             "worst_of_limit": worst, "card": card}), flush=True)
         del q, k, v
-    _precision(fa, card, label)
+    if f32:
+        _precision(fa, card, label)
 
 
 def _exact(q, k, v, causal, window):

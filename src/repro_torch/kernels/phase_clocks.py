@@ -2,15 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.phase_clocks
 
-Builds `csrc/graph_aggregate.cu`, `csrc/segment_aggregate.cu` and
-`csrc/flash_attention_tf32.cu` once more with `-DREPRO_PHASE_CLOCKS` (into
-`kernels/build/phase_clocks/`): block (0, 0) of the GraphSAGE kernels then
-records `clock64()` after a block barrier at each `REPRO_PHASE(i)` mark;
-the f32 flash kernel's block (0, 0, 0), the heaviest query tile, records
-from its first consumer thread, without barriers, its start, Q split and
-first key tile, and the cycles it spent per phase summed over its key
-tiles (Q·K^T, softmax and P split, waiting for V, P·V and the fold,
-waiting for the next K). Each case calls those builds' entry points
+Builds `csrc/graph_aggregate.cu`, `csrc/segment_aggregate.cu`,
+`csrc/flash_attention_tf32.cu` and `csrc/flash_attention_hd256.cu` once
+more with `-DREPRO_PHASE_CLOCKS` (into `kernels/build/phase_clocks/`):
+block (0, 0) of the GraphSAGE kernels then records `clock64()` after a
+block barrier at each `REPRO_PHASE(i)` mark; the f32 flash kernel's block
+(0, 0, 0), the heaviest query tile, records from its first consumer
+thread, without barriers, its start, Q split and first key tile, and the
+cycles it spent per phase summed over its key tiles (Q·K^T, softmax and P
+split, waiting for V, P·V and the fold, waiting for the next K); the
+hd-256 bf16 kernel's block (0, 0, 0) likewise from its first consumer
+warpgroup (waiting for K and V, Q·K^T, softmax and P split, P·V and the
+fold), at recurrentgemma-9b's layer shape. Each case calls those builds' entry points
 directly (the wrappers keep the normal builds), a few times, and the
 phases of its last call are printed as cycles since the block's start
 (for a block that walks several tiles or graphs, those of its last one). The barriers the marks add cost a few hundred
@@ -52,9 +55,10 @@ def _instrumented(name: str) -> ctypes.CDLL:
 
 
 SASS_LIBS = ("graph_aggregate", "segment_aggregate", "flash_attention_tf32",
-             "flash_attention_sm90")
+             "flash_attention_sm90", "flash_attention_hd256")
 FLASH_PHASES = ("Q.K^T", "softmax + P split", "V wait", "P.V + fold",
                 "K wait")
+HD256_PHASES = ("K and V wait", "Q.K^T", "softmax + P split", "P.V + fold")
 
 
 def _sass_waits() -> None:
@@ -138,6 +142,7 @@ def main() -> None:
                              out.data_ptr(), None, B, N, D, F, 1, 1, stream)
         _phases(graph, run, f"graph_aggregate B={B} N={N}", GRAPH_PHASES)
     _flash_phases()
+    _hd256_phases()
 
 
 def _flash_phases() -> None:
@@ -176,6 +181,47 @@ def _flash_phases() -> None:
           f"{clocks[8] - t0} cycles since its start; per key tile: "
           + ", ".join(f"{name} {clocks[3 + j] / tiles:.0f}"
                       for j, name in enumerate(FLASH_PHASES))
+          + f"; its rows vs plain: worst {worst:.3f} of the limit",
+          flush=True)
+
+
+def _hd256_phases() -> None:
+    """One block of the hd-256 bf16 flash kernel at recurrentgemma-9b's
+    local-attention shape (B=2, S=8192, H=16, KH=1, hd=256, causal,
+    window 2048)."""
+    from repro_torch.kernels import flash_attention as fa
+    lib = _instrumented("flash_attention_hd256")
+    fn, _ = fa._bind(lib, "hd256")
+    B, S, H, KH, hd, window = 2, 8192, 16, 1, 256, 2048
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(B, S, H, hd, generator=gen).cuda().bfloat16()
+    k, v = (torch.randn(B, S, KH, hd, generator=gen).cuda().bfloat16()
+            for _ in range(2))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):
+        if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              S, S, H, KH, hd, *q.stride()[:3], *k.stride()[:3],
+              *v.stride()[:3], *out.stride()[:3], 1, window, 0,
+              hd ** -0.5, stream):
+            raise RuntimeError("flash_attention_hd256: launch failed")
+    torch.cuda.synchronize()
+    clocks = (ctypes.c_ulonglong * 16)()
+    if lib.repro_read_phase_clocks(clocks):
+        raise RuntimeError("reading the phase clocks failed")
+    t0, tiles, computed = clocks[0], max(1, clocks[9]), max(1, clocks[10])
+    ref = fa.flash_attention_plain(q[:, -128:], k, v, causal=True,
+                                   window=window, q_offset=S - 128)
+    worst = float(((out[:, -128:].float() - ref.float()).abs()
+                   / (2.0 ** -6 * ref.float().abs() + 1e-5)).max())
+    print(f"[phases] flash_attention_hd256 bf16 layer shape, block (0, 0, "
+          f"0) (query rows {S - 128}..{S - 1}; its first warpgroup walks "
+          f"{clocks[9]} key tiles and computes {clocks[10]}): Q landed "
+          f"{clocks[1] - t0}, first K and V landed {clocks[2] - t0}, end "
+          f"{clocks[8] - t0} cycles since its start; per key tile walked: "
+          f"{HD256_PHASES[0]} {clocks[3] / tiles:.0f}; per tile computed: "
+          + ", ".join(f"{name} {clocks[3 + j] / computed:.0f}"
+                      for j, name in enumerate(HD256_PHASES) if j)
           + f"; its rows vs plain: worst {worst:.3f} of the limit",
           flush=True)
 

@@ -426,9 +426,15 @@ def test_flash_attention_f32_counts_its_launches():
 # 128 < hd <= 256 (csrc/flash_attention_hd256.cu), held element by
 # element as chip_smoke.py holds it: bf16 |out - ref| <= 2^-6·|ref| +
 # 1e-5, f32 2e-5·|ref| + 5e-6; (B, Sq, Sk, H, KH, hd, causal, window,
-# q_offset): recurrentgemma-9b's MQA with a window, ragged rows, a
-# q_offset with Sq < Sk, non-causal, hd 136 and 192 (the second slab of
-# columns partly past hd)
+# q_offset[, scale of q, k and v]): recurrentgemma-9b's MQA with a window,
+# ragged rows, a q_offset with Sq < Sk, non-causal, hd 136 and 192 (the
+# last column box partly past hd, the fourth never loaded); then for the
+# bf16 kernel's blocks of 128 query rows (two warpgroups of 64): Sq = 129
+# and 200 (the second warpgroup of the last block wholly or partly past
+# Sq), windows whose lower edge makes the two warpgroups walk different
+# key tiles, and late rows of an S = 4096 causal head with q, k, v ~
+# N(0, 1.7^2) (a peaked softmax over large v, where the tensor cores'
+# truncating accumulation shows: tests/test_torch_zoo_kernels.py)
 FLASH_HD256_CASES = [
     (2, 300, 300, 4, 1, 256, True, 100, 0),
     (1, 256, 256, 2, 1, 256, True, None, 0),
@@ -436,6 +442,11 @@ FLASH_HD256_CASES = [
     (1, 130, 130, 2, 2, 256, False, None, 0),
     (1, 200, 200, 4, 1, 136, True, 64, 0),
     (2, 96, 96, 2, 1, 192, False, 40, 0),
+    (1, 129, 129, 2, 1, 256, True, None, 0),
+    (2, 200, 200, 4, 1, 256, True, 150, 0),
+    (1, 512, 512, 2, 1, 256, True, 64, 0),
+    (1, 384, 384, 4, 2, 192, True, 70, 0),
+    (1, 1024, 4096, 2, 1, 256, True, None, 3072, 1.7),
 ]
 
 
@@ -446,8 +457,10 @@ def test_flash_attention_hd256_matches_plain(case, dtype):
     _need_card()
     from repro_torch.kernels import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
-    causal, window, q_offset = case[6:]
-    q, k, v = _flash_cuda_inputs(case, getattr(torch, dtype), seed=case[5])
+    causal, window, q_offset = case[6:9]
+    scale = case[9] if len(case) > 9 else 1.0
+    q, k, v = (t * scale for t in _flash_cuda_inputs(
+        case, getattr(torch, dtype), seed=case[5]))
     bf16 = dtype == "bfloat16"
     before = fa.launches, fa.launches_hd256, fa.launches_hd256_f32
     out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -522,14 +535,16 @@ def test_every_kernel_launches_on_its_tensors_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [120, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_cuda_kernel_reads_strided_layouts(dtype):
+def test_flash_attention_cuda_kernel_reads_strided_layouts(dtype, hd):
     """q, k, v as views into one packed [B, S, 3, H, hd] projection (in
-    bf16 through the TMA tensor maps' strides)."""
+    bf16 through the TMA tensor maps' strides), at the hd <= 128 and the
+    hd-256 routes' head dims."""
     _need_card()
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator().manual_seed(1)
-    qkv = torch.randn((2, 130, 3, 4, 120), generator=g).to(
+    qkv = torch.randn((2, 130, 3, 4, hd), generator=g).to(
         "cuda", getattr(torch, dtype))
     q, k, v = qkv[:, :, 0], qkv[:, :, 1, :2], qkv[:, :, 2, 2:]
     out = fa.flash_attention(q, k, v, causal=True, window=50)

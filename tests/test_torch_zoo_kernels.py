@@ -176,12 +176,19 @@ def _bf16_worst(case, split_p):
 
 # (B, Sq, Sk, H, KH, hd, causal, window, q_offset, key tile): hd 120
 # (the model's), 128 and 64, causal or not, a window or none, at the
-# kernel's 128-key tiles; then q_offset > 0 with Sq < Sk at 64-key tiles
+# kernel's 128-key tiles; then q_offset > 0 with Sq < Sk at 64-key tiles;
+# then the hd-256 kernel (csrc/flash_attention_hd256.cu: the same
+# arithmetic over 64-key tiles) at hd 256 (recurrentgemma-9b's), 192 and
+# 136, causal or not, a window or none, and q_offset > 0 with Sq < Sk
 FLASH_BF16_EMU_CASES = [
     (1, 256, 256, 4, 1, hd, causal, window, 0, 128)
     for hd in (120, 128, 64) for causal in (True, False)
     for window in (None, 100)] + [
-    (1, 96, 320, 4, 2, hd, True, 150, 224, 64) for hd in (120, 128, 64)]
+    (1, 96, 320, 4, 2, hd, True, 150, 224, 64) for hd in (120, 128, 64)] + [
+    (1, 256, 256, 2, 1, hd, True, window, 0, 64)
+    for hd in (256, 192, 136) for window in (None, 100)] + [
+    (1, 200, 200, 2, 1, 256, False, 70, 0, 64)] + [
+    (1, 96, 320, 4, 1, hd, True, 150, 224, 64) for hd in (256, 192, 136)]
 
 
 @pytest.mark.parametrize("case", FLASH_BF16_EMU_CASES, ids=str)
@@ -193,23 +200,30 @@ def test_flash_attention_bf16_kernel_rounding_within_flash_tol(case):
     assert worst <= 1.0, worst
 
 
-def test_flash_attention_bf16_pv_carried_across_tiles_fails_flash_tol():
+@pytest.mark.parametrize("hd,sigma,tile", [(128, 1.7, 128), (256, 2.0, 64)],
+                         ids=["hd128", "hd256"])
+def test_flash_attention_bf16_pv_carried_across_tiles_fails_flash_tol(
+        hd, sigma, tile):
     """The guard on the fresh P . V accumulator: late rows of an S = 8192
-    causal head with q, k, v ~ N(0, 1.7^2) (llava-next-34b's layer-0
+    causal head with q, k, v ~ N(0, sigma^2) (llava-next-34b's layer-0
     scale: a peaked softmax over large v), whose outputs cancel to near 0
     here and there. P . V carried across the row in the truncating
-    accumulator puts one of them past 2^-6·|ref| + 1e-5; folded per key
-    tile it stays at the output's own rounding."""
-    S, hd, q0 = 8192, 128, 6144
+    accumulator puts some of them past 2^-6·|ref| + 1e-5; folded per key
+    tile they stay at the output's own rounding. At hd 128 (the hd <= 128
+    kernel's 128-key tiles) sigma 1.7 puts one element over; at hd 256
+    (the hd-256 kernel's 64-key tiles) sigma 1.7 leaves this seed's
+    carried accumulator inside the limit, sigma 2.0 does not."""
+    S, q0 = 8192, 6144
     g = torch.Generator().manual_seed(3)
-    q, k, v = ((torch.randn(1, S, 1, hd, generator=g) * 1.7).bfloat16()
+    q, k, v = ((torch.randn(1, S, 1, hd, generator=g) * sigma).bfloat16()
                for _ in range(3))
     q = q[:, q0:]
     kw = dict(causal=True, window=None, q_offset=q0)
     ref = fa.flash_attention_plain(q, k, v, **kw).float()
     worst = []
     for fresh in (False, True):
-        got = _emulate_tensor_core_flash(q, k, v, fresh_pv=fresh, **kw)
+        got = _emulate_tensor_core_flash(q, k, v, fresh_pv=fresh, tile=tile,
+                                         **kw)
         worst.append(float(((got.float() - ref).abs()
                              / (FLASH_BF16_RTOL * ref.abs()
                                 + FLASH_BF16_ATOL)).max()))
