@@ -1,7 +1,7 @@
 // flash_attention_hd256: forward attention of the LM zoo for head dims
-// 128 < hd <= 256 (recurrentgemma-9b's local attention, hd 256), bf16 on
-// Hopper's tensor cores (wgmma, tiles brought in by TMA) and f32 on the
-// CUDA cores (FMA).
+// 128 < hd <= 256 (recurrentgemma-9b's local attention, hd 256) in bf16,
+// on Hopper's tensor cores (wgmma, tiles brought in by TMA); f32 takes
+// flash_attention_hd256_tf32.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
 // flash_attention_bhsd (body _attn_kernel) for the head dims that the
@@ -10,13 +10,12 @@
 // For batch b, query head h (kv head h / (H / KH)) and query row i at
 // position q_pos = q_offset + i:
 //
-//     s[k]  = (f32(q[b,i,h,:]) . f32(k[b,k,kh,:])) * scale   (bf16)
-//     s[k]  = (f32(q[b,i,h,:]) * scale) . f32(k[b,k,kh,:])   (f32)
+//     s[k]  = (f32(q[b,i,h,:]) . f32(k[b,k,kh,:])) * scale
 //     s[k]  = -1e30 where k >= Sk, (causal) k > q_pos,
 //             or (window) q_pos - k >= window
 //     out   = sum_k exp(s[k] - m) v[b,k,kh,:] / max(sum_k exp(s[k] - m),
 //             1e-30), carried as a running (max m, normalizer l, O) over
-//             key tiles, stored in q's dtype
+//             key tiles, stored in bf16
 //
 // Key tiles wholly outside the causal window are skipped: at
 // recurrentgemma-9b's layer (S = 8192, window 2048) a block of 128 query
@@ -27,9 +26,8 @@
 // What bounds it on an H100: at that layer (B = 2, S = 8192, H = 16,
 // KH = 1, hd = 256, causal, window 2048) the unmasked (q, k) pairs are
 // 469.8 M per head pair, 4 hd FLOPs each: 4.81e11 FLOPs, 0.486 ms at
-// the bf16 tensor-core peak (989 TFLOP/s) and 7.18 ms at the fp32 CUDA
-// cores' 67 TFLOP/s; q, k, v and out move 0.14 GB (bf16), 0.04 ms. So
-// the operations bound both routes.
+// the bf16 tensor-core peak (989 TFLOP/s); q, k, v and out move 0.14 GB,
+// 0.04 ms. So the operations bound it.
 //
 // bf16 (flash_hd256_bf16). Issued tensor-core work: Q·K^T once over all
 // 256 columns (2 hd FLOPs a pair) and P·V twice, for P's two bf16
@@ -99,15 +97,6 @@
 // softmax, which leaves its own warpgroup's products idle, is the next
 // lever.
 //
-// f32 (flash_hd256_f32): a block of 8 warps takes 64 query rows (8 a
-// warp) and all 256 columns; per key tile of 32, warp w computes the
-// scores of its 8 rows against the tile's keys (a key a lane) by FMAs
-// over the head dim, its online softmax by warp shuffles, then
-// O[8 rows][8 columns a lane] += P·V. q is scaled in f32 after the cast
-// and before the product, as the TPU kernel scales it; every product
-// and sum is f32, so only the order of the sums differs from the plain
-// version.
-//
 // The PTX helpers and the tensor-map encoder are wgmma_bf16.cuh's.
 #include "wgmma_bf16.cuh"
 
@@ -129,27 +118,6 @@ namespace {
 constexpr int kHdMax = 256;
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
-
-struct Shape {
-  int B, Sq, Sk, H, KH, hd, causal, window, q_offset;
-  float scale;
-  int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
-};
-
-// the key tiles [lo, hi] that query rows [r0, r1] may see
-__device__ __forceinline__ void key_tiles(const Shape& sh, int r0, int r1,
-                                          int tile, int& lo, int& hi) {
-  const int p0 = sh.q_offset + r0, p1 = sh.q_offset + r1;
-  const int k_hi = sh.causal ? min(sh.Sk - 1, p1) : sh.Sk - 1;
-  const int k_lo = sh.window > 0 ? max(0, p0 - sh.window + 1) : 0;
-  lo = k_lo / tile;
-  hi = k_hi / tile;
-}
-
-__device__ __forceinline__ bool visible(const Shape& sh, int pos, int key) {
-  return key < sh.Sk && (!sh.causal || key <= pos) &&
-         (sh.window <= 0 || pos - key < sh.window);
-}
 
 // ------------------------------------------------------------------ bf16
 constexpr int kBQ = 128;                  // query rows a block
@@ -471,142 +439,6 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 #undef FLASH_LAP
 #undef FLASH_CLOCK
 
-// ------------------------------------------------------------------- f32
-constexpr int kFBQ = 64;                 // query rows a block, 8 a warp
-constexpr int kFBK = 32;                 // keys a tile, one a lane
-constexpr int kFThreads = 256;
-constexpr int kFQStride = kHdMax + 4;    // float4 rows
-constexpr int kFKStride = kHdMax + 1;    // a lane a row: no bank conflict
-constexpr int kFPStride = kFBQ + 4;      // P^T: [key][row]
-constexpr int kSmemF32 =
-    (kFBQ * kFQStride + kFBK * kFKStride + kFBK * kHdMax + kFBK * kFPStride) *
-    4;
-
-// a [rows, hd] f32 tile into shared memory (times `mul`), zero past
-// `valid_rows` and past hd
-__device__ __forceinline__ void stage_f32(float* dst, int stride,
-                                          const float* src, int64_t src_stride,
-                                          int rows, int valid_rows, int hd,
-                                          float mul) {
-  for (int i = threadIdx.x; i < rows * kHdMax; i += blockDim.x) {
-    const int r = i / kHdMax, c = i % kHdMax;
-    dst[r * stride + c] =
-        r < valid_rows && c < hd ? src[r * src_stride + c] * mul : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kFThreads)
-    flash_hd256_f32(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out,
-                    const Shape sh) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + kFBQ * kFQStride;
-  float* Vs = Ks + kFBK * kFKStride;
-  float* Ps = Vs + kFBK * kHdMax;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kFBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (sh.H / sh.KH);
-  const float* kb = k + b * sh.ksb + kh * sh.ksh;
-  const float* vb = v + b * sh.vsb + kh * sh.vsh;
-  stage_f32(Qs, kFQStride, q + b * sh.qsb + h * sh.qsh + q0 * sh.qss, sh.qss,
-            kFBQ, sh.Sq - q0, sh.hd, sh.scale);
-
-  const int r0 = warp * 8;                    // the warp's first row
-  const int hd4 = (sh.hd + 3) / 4;
-  int t_lo, t_hi;
-  key_tiles(sh, q0, min(q0 + kFBQ, sh.Sq) - 1, kFBK, t_lo, t_hi);
-  float o[8][8], m[8], l[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[r][j] = 0.f;
-  }
-
-  for (int kt = t_lo; kt <= t_hi; ++kt) {
-    const int k0 = kt * kFBK;
-    __syncthreads();
-    stage_f32(Ks, kFKStride, kb + k0 * sh.kss, sh.kss, kFBK, sh.Sk - k0,
-              sh.hd, 1.f);
-    stage_f32(Vs, kHdMax, vb + k0 * sh.vss, sh.vss, kFBK, sh.Sk - k0, sh.hd,
-              1.f);
-    __syncthreads();
-
-    // scores of the warp's 8 rows against key `lane`
-    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const float* kr = Ks + lane * kFKStride;
-    for (int d4 = 0; d4 < hd4; ++d4) {
-      const float k_0 = kr[4 * d4], k_1 = kr[4 * d4 + 1],
-                  k_2 = kr[4 * d4 + 2], k_3 = kr[4 * d4 + 3];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(Qs + (r0 + r) * kFQStride +
-                                             4 * d4);
-        s[r] = fmaf(qv.x, k_0, s[r]);
-        s[r] = fmaf(qv.y, k_1, s[r]);
-        s[r] = fmaf(qv.z, k_2, s[r]);
-        s[r] = fmaf(qv.w, k_3, s[r]);
-      }
-    }
-    float alpha[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int pos = sh.q_offset + q0 + r0 + r;
-      const float x = visible(sh, pos, k0 + lane) ? s[r] : kNegInf;
-      float mx = x;
-#pragma unroll
-      for (int d = 16; d >= 1; d >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
-      mx = fmaxf(m[r], mx);
-      alpha[r] = expf(m[r] - mx);
-      m[r] = mx;
-      const float p = expf(x - mx);
-      float rs = p;
-#pragma unroll
-      for (int d = 16; d >= 1; d >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, d);
-      l[r] = l[r] * alpha[r] + rs;
-      Ps[lane * kFPStride + r0 + r] = p;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[r][j] *= alpha[r];
-    for (int kk = 0; kk < kFBK; ++kk) {
-      const float4 pa =
-          *reinterpret_cast<const float4*>(Ps + kk * kFPStride + r0);
-      const float4 pb =
-          *reinterpret_cast<const float4*>(Ps + kk * kFPStride + r0 + 4);
-      const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-      const float* vr = Vs + kk * kHdMax + lane;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float vv = vr[32 * j];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) o[r][j] = fmaf(p[r], vv, o[r][j]);
-      }
-    }
-    __syncwarp();                 // Ps is rewritten by the next tile
-  }
-
-  float* ob = out + b * sh.osb + h * sh.osh;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= sh.Sq) continue;
-    const float d = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = lane + 32 * j;
-      if (col < sh.hd) ob[row * sh.oss + col] = o[r][j] / d;
-    }
-  }
-}
-
 // the kernel's dynamic shared memory, set once per device (the attribute
 // applies to the current device only); 0 or a CUDA error
 int configure(const void* kernel, bool* configured, int smem) {
@@ -623,13 +455,13 @@ int configure(const void* kernel, bool* configured, int smem) {
 
 }  // namespace
 
-// q [B,Sq,H,hd], k/v [B,Sk,KH,hd], out [B,Sq,H,hd] on the device, each
-// given by its batch, sequence and head strides in elements (the
-// head-dim axis contiguous), 128 < hd <= 256 and hd a multiple of 8; for
-// bf16, 16-byte aligned base pointers and strides that are multiples of
-// 8 elements (the wrapper checks TMA's rules). window 0 = none. Launches
-// on `stream`; returns 0, a CUDA error or, for bf16, 10000 (no
-// tensor-map encoder) or 20000 + the encoder's CUresult.
+// q [B,Sq,H,hd], k/v [B,Sk,KH,hd], out [B,Sq,H,hd], bf16 on the device,
+// each given by its batch, sequence and head strides in elements (the
+// head-dim axis contiguous), 128 < hd <= 256 and hd a multiple of 8;
+// 16-byte aligned base pointers and strides that are multiples of 8
+// elements (the wrapper checks TMA's rules). window 0 = none. Launches on
+// `stream`; returns 0, a CUDA error, 10000 (no tensor-map encoder) or
+// 20000 + the encoder's CUresult.
 #define FLASH_HD256_ARGS                                                      \
   const void *q, const void *k, const void *v, void *out, int B, int Sq,      \
       int Sk, int H, int KH, int hd, int64_t qsb, int64_t qss, int64_t qsh,   \
@@ -654,20 +486,5 @@ extern "C" int flash_attention_hd256_bf16(FLASH_HD256_ARGS) {
   flash_hd256_bf16<<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreadsBf16,
                      kSmemBf16, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), sh);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int flash_attention_hd256_f32(FLASH_HD256_ARGS) {
-  static bool configured[kMaxDevices] = {};
-  const int err = configure((const void*)flash_hd256_f32, configured,
-                            kSmemF32);
-  if (err) return err;
-  const Shape sh{B,   Sq,  Sk,  H,   KH,  hd,  causal, window, q_offset,
-                 scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,    vsh,
-                 osb, oss, osh};
-  flash_hd256_f32<<<dim3((Sq + kFBQ - 1) / kFBQ, H, B), kFThreads, kSmemF32,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sh);
   return (int)cudaGetLastError();
 }

@@ -14,14 +14,14 @@ bf16 CUDA tensors launch the tensor-core kernel
 `csrc/flash_attention_sm90.cu` (wgmma and TMA; `launches_tc`) and f32
 CUDA tensors the split-TF32 tensor-core kernel
 `csrc/flash_attention_tf32.cu` (wgmma, bulk copies; `launches_f32`); for
-128 < hd <= 256 (recurrentgemma-9b's hd 256) both dtypes launch
-`csrc/flash_attention_hd256.cu`, bf16 on the tensor cores by wgmma with
-TMA (`launches_hd256`) and f32 by FMAs on the CUDA cores
-(`launches_hd256_f32`); hd > 256 raises (the reference takes any hd; no
-arch of the zoo goes past 256). Each kernel launches on its tensors'
-device; CPU tensors run the plain PyTorch version
+128 < hd <= 256 (recurrentgemma-9b's hd 256) bf16 launches
+`csrc/flash_attention_hd256.cu` (wgmma with TMA; `launches_hd256`) and
+f32 the split-TF32 kernel `csrc/flash_attention_hd256_tf32.cu` (wgmma,
+bulk copies; `launches_hd256_f32`); hd > 256 raises (the reference takes
+any hd; no arch of the zoo goes past 256). Each kernel launches on its
+tensors' device; CPU tensors run the plain PyTorch version
 `flash_attention_plain` at any hd; any other device raises, and a failed
-build or launch raises. `launches` counts every kernel launch (the tf32
+build or launch raises. `launches` counts every kernel launch (an f32
 route's key/value split pre-pass and attention kernel count as one). The
 kernels have no backward (nor has the TPU kernel), so every route
 refuses q, k or v that require grad while grad mode is on
@@ -47,7 +47,7 @@ launches = 0
 launches_tc = 0             # bf16: csrc/flash_attention_sm90.cu
 launches_f32 = 0            # f32: csrc/flash_attention_tf32.cu
 launches_hd256 = 0          # bf16, hd > 128: csrc/flash_attention_hd256.cu
-launches_hd256_f32 = 0      # f32, hd > 128: the same file
+launches_hd256_f32 = 0      # f32, hd > 128: csrc/flash_attention_hd256_tf32.cu
 NEG_INF = -1e30
 TC_HEAD_DIM = 128           # the sm90 and tf32 kernels' tiles hold hd <= 128
 MAX_HEAD_DIM = 256          # the hd256 kernels' tiles hold hd <= 256
@@ -69,20 +69,25 @@ def _check_shapes(q, k, v) -> tuple[int, int, int, int, int, int]:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          window: int | None = None,
-                          q_offset: int = 0) -> torch.Tensor:
+                          window: int | None = None, q_offset: int = 0,
+                          exact: bool = False) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KH,hd]. Returns [B,Sq,H,hd] in q's
-    dtype. The TPU kernel's arithmetic as a dense masked softmax."""
+    dtype. The TPU kernel's arithmetic as a dense masked softmax.
+    `exact`: everything after q·scale (still formed in f32) in float64,
+    rounded to q's dtype once at the end: the reference of the f32
+    kernels' checks on the card, where PyTorch's f32 products themselves
+    land up to 2x the f32 limit from it (hd 256, q x 3: PERF.md)."""
     B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
     rep = H // KH
     scale = 1.0 / math.sqrt(hd)
-    kf = k.float().permute(0, 2, 3, 1)[:, :, None]      # [B,KH,1,hd,Sk]
-    vf = v.float().permute(0, 2, 1, 3)[:, :, None]      # [B,KH,1,Sk,hd]
+    acc = torch.float64 if exact else torch.float32
+    kf = k.to(acc).permute(0, 2, 3, 1)[:, :, None]      # [B,KH,1,hd,Sk]
+    vf = v.to(acc).permute(0, 2, 1, 3)[:, :, None]      # [B,KH,1,Sk,hd]
     k_pos = torch.arange(Sk, device=q.device)
     out = torch.empty_like(q)
     for s0 in range(0, Sq, PLAIN_BLOCK_Q):
         n = min(PLAIN_BLOCK_Q, Sq - s0)
-        qb = q[:, s0:s0 + n].float() * scale            # [B,n,H,hd]
+        qb = (q[:, s0:s0 + n].float() * scale).to(acc)  # [B,n,H,hd]
         qb = qb.permute(0, 2, 1, 3).reshape(B, KH, rep, n, hd)
         s = qb @ kf                                     # [B,KH,rep,n,Sk]
         q_pos = q_offset + s0 + torch.arange(n, device=q.device)
@@ -98,26 +103,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-# route -> (library, entry point); the tf32 route also takes a scratch
+# route -> (library, entry point); the f32 routes also take a scratch
 ROUTES = {"sm90": ("flash_attention_sm90", "flash_attention_sm90"),
           "tf32": ("flash_attention_tf32", "flash_attention_tf32"),
           "hd256": ("flash_attention_hd256", "flash_attention_hd256_bf16"),
-          "hd256_f32": ("flash_attention_hd256",
-                        "flash_attention_hd256_f32")}
+          "hd256_f32": ("flash_attention_hd256_tf32",
+                        "flash_attention_hd256_tf32")}
+SCRATCH_ROUTES = ("tf32", "hd256_f32")
 
 
 def _bind(lib, route: str):
-    """(entry point, the tf32 kernel's scratch size function or None) of
+    """(entry point, the f32 kernels' scratch size function or None) of
     `route` in its loaded library, argument types set."""
     fn = getattr(lib, ROUTES[route][1])
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    tf32 = route == "tf32"
-    fn.argtypes = ([p] * (5 if tf32 else 4) + [i] * 6 + [i64] * 12
+    split = route in SCRATCH_ROUTES
+    fn.argtypes = ([p] * (5 if split else 4) + [i] * 6 + [i64] * 12
                    + [i] * 3 + [ctypes.c_float, p])
     fn.restype = i
-    if not tf32:
+    if not split:
         return fn, None
-    scratch = lib.flash_attention_tf32_scratch_bytes
+    scratch = getattr(lib, f"{ROUTES[route][1]}_scratch_bytes")
     scratch.argtypes = [i] * 4
     scratch.restype = ctypes.c_longlong
     return fn, scratch
@@ -212,7 +218,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     route = route_for(q.dtype, hd)
     fn, scratch_bytes = _kernel(route)
-    # tf32: the kernel's K and V^T hi/lo tiles, written by its pre-pass
+    # f32: the kernel's K and V^T hi/lo tiles, written by its pre-pass
     scratch = None if scratch_bytes is None else torch.empty(
         scratch_bytes(B, Sk, KH, hd), dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):

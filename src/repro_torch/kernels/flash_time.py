@@ -1,9 +1,9 @@
 """Times the f32 route of `flash_attention` on the card (or, with
-`--route hd256`, the hd-256 bf16 route), and holds it against the plain
-version element by element.
+`--route hd256` / `hd256_f32`, the hd-256 bf16 / f32 route), and holds it
+against the plain version element by element.
 
     python3 src/repro_torch/kernels/flash_time.py [--src DIR] [--iters N]
-        [--route f32|hd256]
+        [--route f32|hd256|hd256_f32]
 
 Imports `repro_torch` from `--src` (default: this checkout's `src/`), so
 the same script times another checkout's kernel, an earlier version say,
@@ -14,15 +14,18 @@ after a warm-up, device time per call from the profiler (the sum of the
 call's kernels), and the worst |out - ref| / (2e-5·|ref| + 5e-6) against
 `flash_attention_plain` (TF32 off). Shapes: h2o-danube-3-4b's layer in
 f32 (B=2, S=8192, H=32, KH=8, hd=120, causal, window 4096) and the f32
-check shape of `chip_smoke.py` (B=1, S=1024, window 256); for hd256,
-recurrentgemma-9b's local attention in bf16 (B=2, S=8192, H=16, KH=1,
-hd=256, causal, window 2048), held to 2^-6·|ref| + 1e-5.
+check shape of `chip_smoke.py` (B=1, S=1024, window 256); for hd256 and
+hd256_f32, recurrentgemma-9b's local attention (B=2, S=8192, H=16, KH=1,
+hd=256, causal, window 2048), in bf16 held to 2^-6·|ref| + 1e-5, in f32
+to the f32 limit.
 
-Then, for the f32 route, at the check shape, for seeds 0-3 and q scaled by 1 and by 3, the
-same worst ratio between each pair of: the kernel, the plain version,
-PyTorch's f32 SDPA and an exact attention in float64: how far the plain
-version itself sits from exact arithmetic under the f32 limit. Needs a
-CUDA device; imports nothing else of the repository.
+Then, for the f32 routes, at their check shape (hd256_f32: `chip_smoke.py`
+`rg-f32-q3`'s, B=1, S=1024, H=16, KH=1, hd=256, window 256), for seeds
+0-3 and q scaled by 1 and by 3, the same worst ratio between each pair
+of: the kernel, the plain version, PyTorch's f32 SDPA and an exact
+attention in float64: how far the plain version itself sits from exact
+arithmetic under the f32 limit. Needs a CUDA device; imports nothing else
+of the repository.
 """
 from __future__ import annotations
 
@@ -36,8 +39,14 @@ import sys
 SHAPES = {"layer": (2, 8192, 32, 8, 120, True, 4096),
           "check": (1, 1024, 32, 8, 120, True, 256)}
 RTOL, ATOL = 2e-5, 5e-6
-HD256_SHAPES = {"rg-layer": (2, 8192, 16, 1, 256, True, 2048)}
+HD256_SHAPES = {"rg-layer": (2, 8192, 16, 1, 256, True, 2048),
+                "rg-check": (1, 1024, 16, 1, 256, True, 256)}
 HD256_RTOL, HD256_ATOL = 2.0 ** -6, 1e-5
+# route -> (dtype, shapes timed, (rtol, atol), the precision shape or None)
+ROUTES = {"f32": ("float32", ("layer", "check"), (RTOL, ATOL), "check"),
+          "hd256": ("bfloat16", ("rg-layer",), (HD256_RTOL, HD256_ATOL),
+                    None),
+          "hd256_f32": ("float32", ("rg-layer",), (RTOL, ATOL), "rg-check")}
 
 
 def main() -> None:
@@ -47,7 +56,7 @@ def main() -> None:
         os.path.join(here, "..", "..")))
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--route", choices=("f32", "hd256"), default="f32")
+    ap.add_argument("--route", choices=tuple(ROUTES), default="f32")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -62,12 +71,12 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     label = args.label or args.src
-    f32 = args.route == "f32"
-    dtype = torch.float32 if f32 else torch.bfloat16
-    rtol, atol = (RTOL, ATOL) if f32 else (HD256_RTOL, HD256_ATOL)
+    dtype, names, (rtol, atol), check = ROUTES[args.route]
+    dtype = getattr(torch, dtype)
+    shapes = {**SHAPES, **HD256_SHAPES}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, (B, S, H, KH, hd, causal, window) in (
-            SHAPES if f32 else HD256_SHAPES).items():
+    for name in names:
+        B, S, H, KH, hd, causal, window = shapes[name]
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for shape in ((B, S, H, hd), (B, S, KH, hd),
                                  (B, S, KH, hd)))
@@ -104,8 +113,8 @@ def main() -> None:
             "device_ms": device_ms, "kernels": kernels,
             "worst_of_limit": worst, "card": card}), flush=True)
         del q, k, v
-    if f32:
-        _precision(fa, card, label)
+    if check:
+        _precision(fa, card, label, shapes[check], check)
 
 
 def _exact(q, k, v, causal, window):
@@ -126,10 +135,10 @@ def _exact(q, k, v, causal, window):
     return (torch.softmax(s, -1) @ vf).transpose(1, 2), keep
 
 
-def _precision(fa, card, label) -> None:
+def _precision(fa, card, label, shape, name) -> None:
     import torch
     import torch.nn.functional as F
-    B, S, H, KH, hd, causal, window = SHAPES["check"]
+    B, S, H, KH, hd, causal, window = shape
 
     def worst(a, ref):
         a, ref = a.double(), ref.double()
@@ -151,7 +160,7 @@ def _precision(fa, card, label) -> None:
                     1, 2), v.repeat_interleave(rep, 2).transpose(1, 2),
                 attn_mask=keep).transpose(1, 2)
             print(json.dumps({
-                "tree": label, "precision": "check", "seed": seed,
+                "tree": label, "precision": name, "seed": seed,
                 "q_scale": qmul, "kernel_vs_plain": worst(out, ref),
                 "plain_vs_exact": worst(ref, exact),
                 "kernel_vs_exact": worst(out, exact),

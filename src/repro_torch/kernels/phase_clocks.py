@@ -3,21 +3,25 @@
     PYTHONPATH=src python -m repro_torch.kernels.phase_clocks
 
 Builds `csrc/graph_aggregate.cu`, `csrc/segment_aggregate.cu`,
-`csrc/flash_attention_tf32.cu` and `csrc/flash_attention_hd256.cu` once
-more with `-DREPRO_PHASE_CLOCKS` (into `kernels/build/phase_clocks/`):
-block (0, 0) of the GraphSAGE kernels then records `clock64()` after a
-block barrier at each `REPRO_PHASE(i)` mark; the f32 flash kernel's block
-(0, 0, 0), the heaviest query tile, records from its first consumer
-thread, without barriers, its start, Q split and first key tile, and the
-cycles it spent per phase summed over its key tiles (Q·K^T, softmax and P
-split, waiting for V, P·V and the fold, waiting for the next K); the
-hd-256 bf16 kernel's block (0, 0, 0) likewise from its first consumer
-warpgroup (waiting for K and V, Q·K^T, softmax and P split, P·V and the
-fold), at recurrentgemma-9b's layer shape. Each case calls those builds' entry points
-directly (the wrappers keep the normal builds), a few times, and the
-phases of its last call are printed as cycles since the block's start
-(for a block that walks several tiles or graphs, those of its last one). The barriers the marks add cost a few hundred
-cycles in all; the normal build has no marks. It first prints, for the
+`csrc/flash_attention_tf32.cu`, `csrc/flash_attention_hd256.cu` and
+`csrc/flash_attention_hd256_tf32.cu` once more with `-DREPRO_PHASE_CLOCKS`
+(into `kernels/build/phase_clocks/`): block (0, 0) of the GraphSAGE
+kernels then records `clock64()` after a block barrier at each
+`REPRO_PHASE(i)` mark; the f32 flash kernels' block (0, 0, 0), the
+heaviest query tile, records from its first consumer thread, without
+barriers, its start, Q split and first key tile, and the cycles it spent
+per phase summed over its key tiles (Q·K^T, softmax and P split, waiting
+for V, P·V and the fold, waiting for K), at h2o-danube-3-4b's layer shape
+(hd <= 128) and at recurrentgemma-9b's (hd 256; there Q·K^T waits for
+K's lo half, issues its hi·lo products, then waits for the hi half: both
+waits count as waiting for K); the hd-256 bf16 kernel's block (0, 0, 0)
+likewise from its first consumer warpgroup (waiting for K and V, Q·K^T,
+softmax and P split, P·V and the fold), at recurrentgemma-9b's layer
+shape. Each case calls those builds' entry points directly (the wrappers
+keep the normal builds), a few times, and the phases of its last call
+are printed as cycles since the block's start (for a block that walks
+several tiles or graphs, those of its last one). The barriers the marks
+add cost a few hundred cycles in all; the normal build has no marks. It first prints, for the
 normal builds, how many tensor-core products (HGMMA) the SASS holds and
 how many waits for all of them (WARPGROUP.DEPBAR): one wait per product
 means the compiler serialized them (tf32_mma.cuh), and ptxas's advisories
@@ -55,7 +59,8 @@ def _instrumented(name: str) -> ctypes.CDLL:
 
 
 SASS_LIBS = ("graph_aggregate", "segment_aggregate", "flash_attention_tf32",
-             "flash_attention_sm90", "flash_attention_hd256")
+             "flash_attention_sm90", "flash_attention_hd256",
+             "flash_attention_hd256_tf32")
 FLASH_PHASES = ("Q.K^T", "softmax + P split", "V wait", "P.V + fold",
                 "K wait")
 HD256_PHASES = ("K and V wait", "Q.K^T", "softmax + P split", "P.V + fold")
@@ -141,17 +146,19 @@ def main() -> None:
             return graph_f32(adj.data_ptr(), x.data_ptr(), w.data_ptr(),
                              out.data_ptr(), None, B, N, D, F, 1, 1, stream)
         _phases(graph, run, f"graph_aggregate B={B} N={N}", GRAPH_PHASES)
-    _flash_phases()
+    # h2o-danube-3-4b's layer shape in f32, then recurrentgemma-9b's
+    _flash_phases("tf32", 2, 8192, 32, 8, 120, 4096)
+    _flash_phases("hd256_f32", 2, 8192, 16, 1, 256, 2048)
     _hd256_phases()
 
 
-def _flash_phases() -> None:
-    """One block of the f32 flash kernel at h2o-danube-3-4b's layer shape
-    (B=2, S=8192, H=32, KH=8, hd=120, causal, window 4096)."""
+def _flash_phases(route, B, S, H, KH, hd, window) -> None:
+    """One block of an f32 flash kernel (`route`: tf32 or hd256_f32) at
+    a causal layer shape."""
     from repro_torch.kernels import flash_attention as fa
-    lib = _instrumented("flash_attention_tf32")
-    fn, scratch_bytes = fa._bind(lib, "tf32")
-    B, S, H, KH, hd, window = 2, 8192, 32, 8, 120, 4096
+    name = fa.ROUTES[route][0]
+    lib = _instrumented(name)
+    fn, scratch_bytes = fa._bind(lib, route)
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(B, S, H, hd, generator=gen).cuda()
     k, v = (torch.randn(B, S, KH, hd, generator=gen).cuda()
@@ -165,7 +172,7 @@ def _flash_phases() -> None:
               scratch.data_ptr(), B, S, S, H, KH, hd, *q.stride()[:3],
               *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], 1,
               window, 0, hd ** -0.5, stream):
-            raise RuntimeError("flash_attention_tf32: launch failed")
+            raise RuntimeError(f"{name}: launch failed")
     torch.cuda.synchronize()
     clocks = (ctypes.c_ulonglong * 16)()
     if lib.repro_read_phase_clocks(clocks):
@@ -175,12 +182,12 @@ def _flash_phases() -> None:
                                    window=window, q_offset=S - 64)
     worst = float(((out[:, -64:] - ref).abs()
                    / (2e-5 * ref.abs() + 5e-6)).max())
-    print(f"[phases] flash_attention_tf32 layer shape, block (0, 0, 0) "
+    print(f"[phases] {name} layer shape, block (0, 0, 0) "
           f"(query rows {S - 64}..{S - 1}, {tiles} key tiles): Q split "
           f"{clocks[1] - t0}, first K landed {clocks[2] - t0}, end "
           f"{clocks[8] - t0} cycles since its start; per key tile: "
-          + ", ".join(f"{name} {clocks[3 + j] / tiles:.0f}"
-                      for j, name in enumerate(FLASH_PHASES))
+          + ", ".join(f"{phase} {clocks[3 + j] / tiles:.0f}"
+                      for j, phase in enumerate(FLASH_PHASES))
           + f"; its rows vs plain: worst {worst:.3f} of the limit",
           flush=True)
 

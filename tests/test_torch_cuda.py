@@ -378,9 +378,12 @@ def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
 
 
 # the f32 kernel held element by element as chip_smoke.py holds it:
-# |out - ref| <= 2e-5·|ref| + 5e-6; (B, Sq, Sk, H, KH, hd, causal, window,
-# q_offset, q scale): hd 64 / 120 / 128, q_offset > 0 with Sq < Sk, and
-# q x 3 (larger scores, where exp turns a score's error into most of it)
+# |out - ref| <= 2e-5·|ref| + 5e-6 against the plain version in float64
+# (`exact`: on the card the f32 plain version's own products land up to
+# ~2x that limit from it at hd 256, q x 3); (B, Sq, Sk, H, KH, hd,
+# causal, window, q_offset, q scale): hd 64 / 120 / 128, q_offset > 0
+# with Sq < Sk, and q x 3 (larger scores, where exp turns a score's
+# error into most of it)
 FLASH_F32_CASES = [
     (1, 512, 512, 4, 1, hd, True, window, 0, 1.0)
     for hd in (64, 120, 128) for window in (None, 100)] + [
@@ -404,7 +407,7 @@ def test_flash_attention_f32_split_tf32_within_flash_tol(case):
                              q_offset=q_offset)
     assert fa.launches_f32 == before + 1
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, exact=True)
     worst = float(((out - ref).abs() / (2e-5 * ref.abs() + 5e-6)).max())
     assert worst <= 1.0, worst
 
@@ -423,10 +426,12 @@ def test_flash_attention_f32_counts_its_launches():
         before[0] + 3, before[1], before[2] + 3)
 
 
-# 128 < hd <= 256 (csrc/flash_attention_hd256.cu), held element by
-# element as chip_smoke.py holds it: bf16 |out - ref| <= 2^-6·|ref| +
-# 1e-5, f32 2e-5·|ref| + 5e-6; (B, Sq, Sk, H, KH, hd, causal, window,
-# q_offset[, scale of q, k and v]): recurrentgemma-9b's MQA with a window,
+# 128 < hd <= 256 (bf16: csrc/flash_attention_hd256.cu; f32:
+# csrc/flash_attention_hd256_tf32.cu), held element by element as
+# chip_smoke.py holds it: bf16 |out - ref| <= 2^-6·|ref| + 1e-5, f32
+# 2e-5·|ref| + 5e-6 against the plain version in float64 (`exact`);
+# (B, Sq, Sk, H, KH, hd, causal, window, q_offset[, scale of q, k and
+# v[, scale of q alone]]): recurrentgemma-9b's MQA with a window,
 # ragged rows, a q_offset with Sq < Sk, non-causal, hd 136 and 192 (the
 # last column box partly past hd, the fourth never loaded); then for the
 # bf16 kernel's blocks of 128 query rows (two warpgroups of 64): Sq = 129
@@ -434,7 +439,10 @@ def test_flash_attention_f32_counts_its_launches():
 # Sq), windows whose lower edge makes the two warpgroups walk different
 # key tiles, and late rows of an S = 4096 causal head with q, k, v ~
 # N(0, 1.7^2) (a peaked softmax over large v, where the tensor cores'
-# truncating accumulation shows: tests/test_torch_zoo_kernels.py)
+# truncating accumulation shows: tests/test_torch_zoo_kernels.py); last,
+# q x 3 at hd 256, where one f32 accumulator over all 256 columns of
+# Q·K^T would fail the f32 limit (the f32 kernel sums 64 columns an
+# accumulator)
 FLASH_HD256_CASES = [
     (2, 300, 300, 4, 1, 256, True, 100, 0),
     (1, 256, 256, 2, 1, 256, True, None, 0),
@@ -447,6 +455,7 @@ FLASH_HD256_CASES = [
     (1, 512, 512, 2, 1, 256, True, 64, 0),
     (1, 384, 384, 4, 2, 192, True, 70, 0),
     (1, 1024, 4096, 2, 1, 256, True, None, 3072, 1.7),
+    (1, 256, 256, 2, 1, 256, True, None, 0, 1.0, 3.0),
 ]
 
 
@@ -461,6 +470,8 @@ def test_flash_attention_hd256_matches_plain(case, dtype):
     scale = case[9] if len(case) > 9 else 1.0
     q, k, v = (t * scale for t in _flash_cuda_inputs(
         case, getattr(torch, dtype), seed=case[5]))
+    if len(case) > 10:
+        q = q * case[10]
     bf16 = dtype == "bfloat16"
     before = fa.launches, fa.launches_hd256, fa.launches_hd256_f32
     out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -468,11 +479,38 @@ def test_flash_attention_hd256_matches_plain(case, dtype):
     assert (fa.launches, fa.launches_hd256, fa.launches_hd256_f32) == (
         before[0] + 1, before[1] + bf16, before[2] + (not bf16))
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, exact=not bf16)
     rtol, atol = (2.0 ** -6, 1e-5) if bf16 else (2e-5, 5e-6)
     worst = float(((out.float() - ref.float()).abs()
                    / (rtol * ref.float().abs() + atol)).max())
     assert worst <= 1.0, worst
+
+
+@pytest.mark.cuda
+def test_flash_attention_hd256_f32_counts_its_launches():
+    """One f32 call at hd 256 runs two device kernels, the key/value split
+    pre-pass and the attention kernel, and counts one launch of the
+    hd256_f32 route, none of the others."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_cuda_inputs((1, 100, 100, 4, 1, 256), torch.float32, 0)
+    fa.flash_attention(q, k, v, causal=True)          # build and load
+    torch.cuda.synchronize()
+    before = (fa.launches, fa.launches_tc, fa.launches_f32,
+              fa.launches_hd256, fa.launches_hd256_f32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_tc, fa.launches_f32,
+            fa.launches_hd256, fa.launches_hd256_f32) == (
+        before[0] + 3, before[1], before[2], before[3], before[4] + 3)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("split_kv" in n for n in names) == 3, names
+    assert sum("flash_hd256_tf32" in n for n in names) == 3, names
 
 
 def _every_kernel(dev):
@@ -553,6 +591,28 @@ def test_flash_attention_cuda_kernel_reads_strided_layouts(dtype, hd):
     rtol, atol = (2.0 ** -6, 1e-5) if dtype == "bfloat16" else (2e-5, 2e-5)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [130, 256])
+def test_flash_attention_hd256_f32_reads_q_without_16_byte_rows(hd):
+    """The hd-256 f32 kernel copies q in 16-byte pieces only where q's
+    base, strides and hd allow; here q starts 4 bytes into a row of hd + 1
+    floats (and hd 130 is no multiple of 4): its 4-byte copies."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(2)
+    buf = torch.randn((1, 150, 4, hd + 1), generator=g).cuda()
+    q = buf[..., 1:]
+    k, v = (torch.randn((1, 150, 2, hd), generator=g).cuda()
+            for _ in range(2))
+    before = fa.launches_hd256_f32
+    out = fa.flash_attention(q, k, v, causal=True, window=70)
+    assert fa.launches_hd256_f32 == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=True, window=70,
+                                   exact=True)
+    worst = float(((out - ref).abs() / (2e-5 * ref.abs() + 5e-6)).max())
+    assert worst <= 1.0, worst
 
 
 @pytest.mark.cuda

@@ -268,30 +268,38 @@ def _rz_float32(x):
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _tc_product(a, b, split):
+def _tc_product(a, b, split, chunk=None):
     """a [..., M, D] @ b[..., N, D]^T as the tensor cores take it: k8
     steps into an f32 accumulator, truncated after each; `split`: the
-    three-term split TF32 (corrections first), else one tf32 product."""
+    three-term split TF32 (corrections first), else one tf32 product.
+    `chunk`: D is cut into chunks of that many columns, each summed in a
+    fresh accumulator, and the chunks' sums are added in f32 (round to
+    nearest); None: one accumulator over all of D."""
     a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
     terms = []
     if split:
         a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
         terms = [(a_hi, b_lo), (a_lo, b_hi)]
     terms.append((a_hi, b_hi))
-    acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32)
-    for x, y in terms:
-        for k0 in range(0, a.shape[-1], 8):
-            step = (x[..., k0:k0 + 8].double()
-                    @ y[..., k0:k0 + 8].double().transpose(-1, -2))
-            acc = _rz_float32(acc.double() + step)
-    return acc
+    D = a.shape[-1]
+    total = None
+    for c0 in range(0, D, chunk or D):
+        acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32)
+        for x, y in terms:
+            for k0 in range(c0, min(D, c0 + (chunk or D)), 8):
+                step = (x[..., k0:k0 + 8].double()
+                        @ y[..., k0:k0 + 8].double().transpose(-1, -2))
+                acc = _rz_float32(acc.double() + step)
+        total = acc if total is None else total + acc
+    return total
 
 
 def _emulate_split_tf32_flash(q, k, v, *, causal, window, q_offset,
-                              tile=64, split=(True, True)):
+                              tile=64, split=(True, True), qk_chunk=None):
     """q [B,Sq,H,hd], k, v [B,Sk,KH,hd] f32 -> f32 in the arithmetic of
-    the f32 kernel; `split` (Q·K^T, P·V): False takes that product as one
-    tf32 product instead."""
+    the f32 kernels, over key tiles of `tile`; `split` (Q·K^T, P·V): False
+    takes that product as one tf32 product instead; `qk_chunk`: Q·K^T's
+    head-dim columns per fresh accumulator (`_tc_product`'s `chunk`)."""
     B, Sq, H, hd = q.shape
     Sk, rep = k.shape[1], H // k.shape[2]
     qs = (q * (1.0 / math.sqrt(hd))).transpose(1, 2)        # [B,H,Sq,hd]
@@ -302,7 +310,7 @@ def _emulate_split_tf32_flash(q, k, v, *, causal, window, q_offset,
     l = torch.zeros((B, H, Sq, 1))
     o = torch.zeros((B, H, Sq, hd))
     for k0 in range(0, Sk, tile):
-        s = _tc_product(qs, kf[:, :, k0:k0 + tile], split[0])
+        s = _tc_product(qs, kf[:, :, k0:k0 + tile], split[0], qk_chunk)
         k_pos = k0 + torch.arange(s.shape[-1])[None, :]
         valid = k_pos < Sk
         if causal:
@@ -320,15 +328,15 @@ def _emulate_split_tf32_flash(q, k, v, *, causal, window, q_offset,
     return (o / l.clamp_min(1e-30)).transpose(1, 2)
 
 
-def _f32_worst(case, split=(True, True)):
+def _f32_worst(case, split=(True, True), **emu):
     """The emulation's largest |Δ| / (rtol·|ref| + atol) against the
-    plain version."""
+    plain version; `emu`: the emulation's tile and qk_chunk."""
     B, Sq, Sk, H, KH, hd, causal, window, q_offset, qmul = case
     q, k, v = (torch.from_numpy(a) for a in _flash_inputs(
         B, Sq, Sk, H, KH, hd, "float32", seed=Sk + hd))
     q = q * qmul
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    got = _emulate_split_tf32_flash(q, k, v, split=split, **kw)
+    got = _emulate_split_tf32_flash(q, k, v, split=split, **emu, **kw)
     ref = fa.flash_attention_plain(q, k, v, **kw)
     return float(((got - ref).abs() / (FLASH_F32_RTOL * ref.abs()
                                        + FLASH_F32_ATOL)).max())
@@ -362,6 +370,37 @@ def test_flash_attention_f32_one_tf32_product_fails_flash_tol(split):
     case = (1, 256, 256, 4, 1, 120, True, 100, 0, 1.0)
     assert _f32_worst(case, split) > 10.0
     assert _f32_worst(case) <= 1.0
+
+
+# The hd-256 f32 kernel (csrc/flash_attention_hd256_tf32.cu) takes the
+# same split-TF32 arithmetic over 32-key tiles, with Q·K^T's head-dim sum
+# in fresh accumulators of 64 columns each, added in f32: one accumulator
+# carried over all 256 columns truncates 96 k8 steps into one running
+# sum, which fails the limit at q x 3. Cases (as above): hd 256 (the
+# model's), 192 and 136 (past 128, one k8 step into the third chunk),
+# q x 1 and q x 3, a window or none, and q_offset > 0 with Sq < Sk.
+HD256_EMU = dict(tile=32, qk_chunk=64)
+FLASH_HD256_F32_EMU_CASES = [
+    (1, 256, 256, 2, 1, hd, True, window, 0, qmul)
+    for hd in (256, 192, 136) for window in (None, 100)
+    for qmul in (1.0, 3.0)] + [
+    (1, 96, 320, 2, 1, hd, True, 150, 224, 3.0) for hd in (256, 192)]
+
+
+@pytest.mark.parametrize("case", FLASH_HD256_F32_EMU_CASES, ids=str)
+def test_flash_attention_hd256_f32_split_tf32_within_flash_tol(case):
+    """The hd-256 kernel's arithmetic stays within 2e-5·|ref| + 5e-6 of
+    the plain version at hd 256, 192 and 136, q x 3 included."""
+    assert _f32_worst(case, **HD256_EMU) <= 1.0
+
+
+def test_flash_attention_hd256_f32_one_accumulator_fails_flash_tol():
+    """The guard on the head-dim chunks: the same q x 3 input at hd 256
+    with one accumulator over all 256 columns of Q·K^T fails the limit
+    (1.40x it), the chunked sum passes."""
+    case = (1, 256, 256, 2, 1, 256, True, None, 0, 3.0)
+    assert _f32_worst(case, tile=32) > 1.0
+    assert _f32_worst(case, **HD256_EMU) <= 1.0
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
