@@ -1417,28 +1417,45 @@ def check_ssd_scan() -> dict:
 
 
 # --------------------------------------------------------------------- 9
-def _lm_model(arch=ARCH, tag="lm-forward", depth=None):
-    """`arch`'s full config (its one stack cut to `depth` layers if
-    given) and its seed-0 params on the card."""
+def _cut(full, depth):
+    """`full` with its stacks cut to `depth`: an int for a config of one
+    stack, else one repeat count a stack (a stack cut to 0 is left
+    out)."""
     import dataclasses
 
+    from repro_torch.models.config import Stack
+    depths = (depth,) if isinstance(depth, int) else tuple(depth)
+    if len(depths) != len(full.stacks):
+        raise ValueError(f"{full.name}: {len(full.stacks)} stacks, depth "
+                         f"{depth}")
+    stacks = tuple(Stack(s.pattern, n) for s, n in zip(full.stacks, depths)
+                   if n)
+    return full if stacks == full.stacks else dataclasses.replace(
+        full, stacks=stacks)
+
+
+def _lm_model(arch=ARCH, tag="lm-forward", depth=None):
+    """`arch`'s full config (cut to `depth` if given: a layer count for a
+    config of one stack, else one count a stack) and its seed-0 params on
+    the card."""
     import torch
     from repro_torch.models import lm, registry
-    from repro_torch.models.config import Stack
     cfg = full = registry.get_config(arch)
-    if depth is not None and depth != full.num_layers:
-        (stack,) = full.stacks
-        cfg = dataclasses.replace(full, stacks=(Stack(stack.pattern,
-                                                      depth),))
+    if depth is not None:
+        cfg = _cut(full, depth)
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device=DEVICE).manual_seed(0),
                             cfg, device=DEVICE)
     torch.cuda.synchronize()
-    mixer = (f"{cfg.num_heads} heads ({cfg.num_kv_heads} kv), head_dim "
+    mixer = (f"mla {cfg.mla}, {cfg.num_heads} heads" if cfg.mla else
+             f"{cfg.num_heads} heads ({cfg.num_kv_heads} kv), head_dim "
              f"{cfg.resolved_head_dim}, window "
              f"{cfg.sliding_window if cfg.has_mixer('swa') else None}"
              if cfg.num_heads else f"ssm {cfg.ssm}")
-    ffn = f"moe {cfg.moe}" if cfg.moe else f"d_ff {cfg.d_ff}"
+    ffn = ", ".join(
+        [f"d_ff {cfg.d_ff}"] * any(e.endswith("+mlp") for s in cfg.stacks
+                                   for e in s.pattern)
+        + [f"moe {cfg.moe}"] * bool(cfg.moe))
     log(f"[{tag}] {arch} full config: {cfg.num_layers} layers"
         f"{'' if cfg is full else f' (cut from {full.num_layers})'}, "
         f"d_model {cfg.d_model}, {mixer}, {ffn}, vocab {cfg.vocab_size}, "
@@ -1686,17 +1703,44 @@ def as_f32(cfg, params, tag="lm-forward-f32"):
 
 
 # -------------------------------------------------------------------- 10
+def _near_ties(p, mc, xf):
+    """[T] bool: the tokens of xf [T, D] whose k-th and (k+1)-th router
+    selection scores (softmax, or sigmoid + e_bias) lie within
+    MOE_TIE_RTOL of each other (relative to the k-th): top-k may order
+    such a pair either way on two devices."""
+    import torch
+    logits = xf.float() @ p["router"]
+    sel = (torch.sigmoid(logits) + p["e_bias"][None, :] if mc.router_scale
+           else torch.softmax(logits, dim=-1))
+    top = sel.topk(mc.top_k + 1, dim=-1).values
+    return (top[:, -2] - top[:, -1]) <= MOE_TIE_RTOL * top[:, -2].abs()
+
+
 @contextlib.contextmanager
 def _moe_drops():
-    """Counts, in every `moe_apply` call of the model, the (token, choice)
-    pairs dropped at capacity; keeps the first call's params and input.
-    Yields {"dropped": [per call], "p0": ..., "x0": ...}."""
+    """Routes and dispatches the input of every `moe_apply` call of the
+    model once more, as `moe_apply` does, and counts from that dispatch
+    the (token, choice) pairs dropped at capacity and marks the tokens
+    that lose one; counts the top-k near-ties (`_near_ties`); keeps the
+    first call's params and input. Yields {"dropped": [pairs per call],
+    "tokens": [[B, S] bool per call], "ties": [per call], "p0": ...,
+    "x0": ...}."""
+    import torch
     from repro_torch.models import layers
     apply = layers.moe_apply
-    rec = {"dropped": [], "p0": None, "x0": None}
+    rec = {"dropped": [], "tokens": [], "ties": [], "p0": None, "x0": None}
 
     def counting(p, cfg, x):
-        rec["dropped"].append(layers.moe_dropped(p, cfg, x))
+        mc = cfg.moe
+        xf = x.reshape(-1, x.shape[-1])
+        _, ids = layers._route(p, mc, xf)
+        sort_idx, _, keep = layers.moe_dispatch(
+            ids, mc.num_experts, layers.moe_capacity(xf.shape[0], mc))
+        lost = torch.zeros(xf.shape[0], dtype=torch.bool, device=x.device)
+        lost[sort_idx[~keep] // mc.top_k] = True
+        rec["dropped"].append(int((~keep).sum()))
+        rec["tokens"].append(lost.reshape(x.shape[:2]))
+        rec["ties"].append(int(_near_ties(p, mc, xf).sum()))
         if rec["x0"] is None:
             rec["p0"], rec["x0"] = p, x.clone()
         return apply(p, cfg, x)
@@ -1711,9 +1755,10 @@ def lm_serve(cfg, params, tag="lm-serve") -> None:
     """The serve loop (batch SERVE_BATCH, prompt SERVE_PROMPT,
     SERVE_STEPS greedy steps) with its launches, one profiled decode
     step, and prefill on SERVE_PROMPT - 1 tokens + decode of the last
-    against the forward's last position. With MoE layers that check
-    holds only where no token is dropped at capacity: it fails unless
-    the forward, the prefill and the decode drop none."""
+    against the forward's last position. With MoE layers that check is
+    made on the sequences that no drop at capacity reaches
+    (`_clean_rows`: all of them where nothing is dropped) and fails if
+    there are none."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1744,9 +1789,11 @@ def lm_serve(cfg, params, tag="lm-serve") -> None:
             params, {"tokens": tokens[:, :-1]})
         decode = lm.decode_step_fn(cfg)
         step, _ = decode(params, cache, tokens[:, -1:], SERVE_PROMPT - 1)
+    with torch.inference_mode():
         # where a decode step's time goes: the same step again (an
         # attention layer rewrites the same cache slot, an SSD layer
         # advances its state once more; its logits are not used), profiled
+        # without `_moe_drops`' routing beside it
         prof, wall = device_profile(lambda: decode(
             params, cache, tokens[:, -1:], SERVE_PROMPT - 1))
     busy = sum(us for _, us in prof.values()) / 1e3
@@ -1756,18 +1803,40 @@ def lm_serve(cfg, params, tag="lm-serve") -> None:
         f"{sum(c for c, _ in prof.values())} kernel launches; top: "
         + ", ".join(f"{_short(n)} {us / 1e3:.3f} ms ({c}x)"
                     for n, (c, us) in top))
+    what = (f"prefill on {SERVE_PROMPT - 1} tokens + decode of token "
+            f"{SERVE_PROMPT}")
     if cfg.moe:
-        n = cfg.num_layers
+        n = sum(s.repeats for s in cfg.stacks for e in s.pattern
+                if e.endswith("+moe"))
         log(f"[{tag}] pairs dropped at capacity, per MoE layer: forward "
             f"over {SERVE_BATCH} x {SERVE_PROMPT} tokens "
             f"{drops['dropped'][:n]}, prefill {drops['dropped'][n:2 * n]}, "
-            f"decode {drops['dropped'][2 * n:3 * n]}")
-        if any(drops["dropped"]):
-            raise AssertionError(f"{tag}: tokens dropped at the serve "
-                                 "shape; decode vs forward does not hold")
-    _hold_decode(tag, cfg, step[:, 0], full,
-                 f"prefill on {SERVE_PROMPT - 1} tokens + decode of token "
-                 f"{SERVE_PROMPT}")
+            f"decode {drops['dropped'][2 * n:3 * n]}; top-k near-ties "
+            f"{drops['ties'][:3 * n]}")
+        rows = _clean_rows(cfg, drops["tokens"], n)
+        log(f"[{tag}] sequences no drop reaches: {rows} of {SERVE_BATCH}")
+        if not rows:
+            raise AssertionError(f"{tag}: drops reach every sequence; "
+                                 "decode vs forward cannot be held")
+        step, full = step[rows], full[rows]
+        what += f", sequences {rows}"
+    _hold_decode(tag, cfg, step[:, 0], full, what)
+
+
+def _clean_rows(cfg, tokens, n) -> list:
+    """The sequences whose decode logits a capacity drop cannot move, from
+    the [B, S] dropped-token marks of n MoE calls each of the forward,
+    the prefill and the decode (`_moe_drops`): a drop in a MoE layer that
+    a mixer follows moves its token's input to every later layer, and so
+    the whole sequence through attention; a drop in the model's last
+    layer moves its own token's output alone, which counts at the
+    forward's last position and nowhere in the prefill (its last layer
+    feeds no cache)."""
+    last = cfg.stacks[-1].pattern[-1].endswith("+moe")
+    fwd, pre, dec = tokens[:n], tokens[n:2 * n], tokens[2 * n:3 * n]
+    hit = sum(t.any(dim=1) for t in fwd[:n - last] + pre[:n - last]
+              + dec) + sum(t[:, -1] for t in fwd[n - last:])
+    return [b for b in range(len(hit)) if not bool(hit[b])]
 
 
 def _hold_decode(tag, cfg, got, want, what) -> None:
@@ -2935,7 +3004,12 @@ LM_ADAFACTOR_LR = 1e-2
 LM_ACCUM_RTOL = 1e-6
 
 
-def _lm_train_run(cfg, batch, optimizer: str, lr) -> dict:
+def _lm_train_run(cfg, batch, optimizer: str, lr, tag="lm-train") -> dict:
+    """LM_TRAIN_STEPS steps of `train_step_fn` from the seed-0 params on
+    one repeated batch (Adafactor's first differentiates the microbatch
+    loop whole): losses, s a step after the first, tokens/s, model
+    TFLOP/s and peak memory; fails unless the losses are finite and
+    falling."""
     import dataclasses
     import gc
     import numpy as np
@@ -2968,28 +3042,28 @@ def _lm_train_run(cfg, batch, optimizer: str, lr) -> dict:
         prof, wall = device_profile(lambda: step(params, state, batch),
                                     host_ops=False)
         busy = sum(us for _, us in prof.values()) / 1e6
-        log(f"[lm-train] {optimizer} profiled step: wall {wall:.3f} s, "
+        log(f"[{tag}] {optimizer} profiled step: wall {wall:.3f} s, "
             f"device busy {busy:.3f} s ({busy / wall:.1%}), "
             f"{sum(c for c, _ in prof.values())} kernel launches")
         for name, (count, us) in sorted(prof.items(),
                                         key=lambda kv: -kv[1][1])[:8]:
-            log(f"[lm-train]   {us / 1e3:9.3f} ms {count:6d}x  "
+            log(f"[{tag}]   {us / 1e3:9.3f} ms {count:6d}x  "
                 f"{_short(name)}")
     del params, state, stats
     gc.collect()
     torch.cuda.empty_cache()
-    tokens = LM_TRAIN_SEQ * LM_TRAIN_BATCH
+    tokens = batch["tokens"].numel()
     s = float(np.mean(secs[1:]))
     flops = 6 * n_params * tokens / s           # model FLOP/s
     lr_text = "3e-4, cosine (the default)" if lr is None else f"{lr:g}"
-    log(f"[lm-train] {optimizer} (lr {lr_text}): losses "
+    log(f"[{tag}] {optimizer} (lr {lr_text}): losses "
         f"{[round(x, 6) for x in losses]} ({modes}); s per step "
         f"{[round(x, 3) for x in secs]}: {s:.3f} s a step after the first, "
         f"{tokens / s:.1f} tokens/s, model {flops / 1e12:.1f} TFLOP/s "
         f"(6·N·tokens/s; {flops / PEAK_BF16_FLOP_PER_S:.1%} of the bf16 "
         f"peak), peak memory {peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"[lm-train] {optimizer}: losses {losses} not "
+        raise AssertionError(f"[{tag}] {optimizer}: losses {losses} not "
                              "finite and falling")
     return {"losses": losses, "s": s, "peak": peak, "params": n_params}
 
@@ -3110,9 +3184,7 @@ def moe_card_vs_cpu(tag, cfg, p0, x0) -> None:
     _, ids_card = layers._route(p_card, mc, x_card.reshape(T, D))
     _, ids_cpu = layers._route(p_cpu, mc, x_cpu.reshape(T, D))
     ids_card = ids_card.cpu()
-    probs = torch.softmax(x_cpu.reshape(T, D) @ p_cpu["router"], dim=-1)
-    top = probs.topk(mc.top_k + 1, dim=-1).values
-    ties = (top[:, -2] - top[:, -1]) <= MOE_TIE_RTOL * top[:, -2]
+    ties = _near_ties(p_cpu, mc, x_cpu.reshape(T, D))
     same_ids = (ids_card.sort(-1).values == ids_cpu.sort(-1).values).all(-1)
     same_kept = (_kept(ids_card, mc.num_experts, cap)
                  == _kept(ids_cpu, mc.num_experts, cap)).all(-1)
@@ -3349,21 +3421,22 @@ def _rg_config(depth):
 
 
 @contextlib.contextmanager
-def _first_rglru():
-    """Keeps the first `rglru_apply_train` call's params and input."""
+def _first_call(name: str):
+    """Keeps the params and input of the model's first call of the mixer
+    `layers.<name>` (rglru_apply_train, mla_apply_train)."""
     from repro_torch.models import layers
-    apply = layers.rglru_apply_train
+    apply = getattr(layers, name)
     rec = {}
 
-    def keep(p, cfg, x):
+    def keep(p, cfg, x, **kw):
         if not rec:
             rec.update(p=p, x=x.clone())
-        return apply(p, cfg, x)
-    layers.rglru_apply_train = keep
+        return apply(p, cfg, x, **kw)
+    setattr(layers, name, keep)
     try:
         yield rec
     finally:
-        layers.rglru_apply_train = apply
+        setattr(layers, name, apply)
 
 
 def rglru_card_vs_cpu(cfg, p0, x0) -> None:
@@ -3423,7 +3496,7 @@ def phase_lm_rglru(card: str) -> dict:
                 f" window {cfg.sliding_window}, lru {cfg.rglru}, d_ff "
                 f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
                 f"{lm.param_count(params)} params")
-            with _first_rglru() as first:
+            with _first_call("rglru_apply_train") as first:
                 res = lm_forward(cfg, params, "lm-rglru",
                                  profile_chunked=False)
             break
@@ -3510,6 +3583,189 @@ def phase_import(card: str, replay, seg_qm) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     return {"segment_aggregate": f32["launches"]["segment_aggregate"],
             "segment_aggregate_i8": i8["launches"]["segment_aggregate_i8"]}
+
+
+# -------------------------------------------------------------------- 22
+MLA_ARCH = "deepseek-v3-671b"
+# (dense, MoE) layers of its (3, 58), at full width: the deepest cut that
+# one card holds beside the 2 x 8192 forward (each MoE layer is 21.4 GiB
+# of bf16 weights; at (3, 2) `_winit` draws a stacked expert leaf in f32,
+# 28 GiB, beside its cast and the leaves made before it)
+DS_DEPTHS = ((3, 2), (3, 1))
+# LM_TRAIN_STEPS Adafactor steps (`_lm_train_run`) on 1 x DS_TRAIN_SEQ
+# tokens: at (3, 1) 28 GiB of weights and 28 GiB of bf16 gradients leave
+# less than the update's f32 temporaries of an expert stack (14 GiB
+# each); then the three dense layers alone
+DS_TRAIN_DEPTHS = ((3, 1), (3, 0))
+DS_TRAIN_SEQ = 2048
+# layer 0's MLA in f32, card vs CPU, on the first MLA_CARD_SEQ positions
+# of the first sequence: max|Δ| <= 1e-5·max|ref| (the RG-LRU check's
+# limit; f32 sums in another order)
+MLA_CARD_RTOL = 1e-5
+MLA_CARD_SEQ = 2048
+
+
+def mla_card_vs_cpu(cfg, p0, x0) -> None:
+    """Layer 0's `mla_apply_train` in f32 on the card against the CPU,
+    from the same inputs (the layer's bf16 weights and the input the
+    forward gave it, cast to f32), within MLA_CARD_RTOL·max|ref|; then
+    three planted faults, each run on the card, which the check must
+    catch: the rope key roped at positions + 1, the KV latent's RMSNorm
+    left out, the causal mask shifted by one (q_offset=1: each query
+    sees the next key; rope is relative, so q_offset moves nothing
+    else)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import layers
+    c32 = dataclasses.replace(cfg, dtype="float32")
+
+    def f32(tree, dev):
+        return {k: f32(v, dev) if isinstance(v, dict)
+                else v.to(dev, torch.float32) for k, v in tree.items()}
+    p_card, p_cpu = f32(p0, DEVICE), f32(p0, "cpu")
+    x_card = x0[:1, :MLA_CARD_SEQ].float()
+    t0 = time.perf_counter()
+    got = layers.mla_apply_train(p_card, c32, x_card).cpu()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = layers.mla_apply_train(p_cpu, c32, x_card.cpu())
+    t_cpu = time.perf_counter() - t0
+    scale = float(want.abs().max())
+    tol = MLA_CARD_RTOL * scale
+    err = float((got - want).abs().max())
+    log(f"[lm-mla] layer 0 mla_apply_train in f32 over "
+        f"{tuple(x_card.shape)} ({x_card.shape[1]} positions), card vs CPU:"
+        f" max|Δ| {err:.3e} (tol {tol:.3e}, max|ref| {scale:.4f}); card "
+        f"{t_card:.3f} s, CPU {t_cpu:.3f} s")
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        raise AssertionError("lm-mla: mla_apply_train card vs CPU")
+    latent = layers._mla_kv_latent
+
+    def rope_shifted(p, c, x, positions):
+        return latent(p, c, x, positions)[0], latent(p, c, x,
+                                                     positions + 1)[1]
+
+    def unnormed(p, c, x, positions):
+        ckv = (x @ p["wdkv"])[..., :c.mla.kv_lora_rank]
+        return ckv, latent(p, c, x, positions)[1]
+    for label, fault, kw in (("k_rope at positions + 1", rope_shifted, {}),
+                             ("the KV latent's RMSNorm left out", unnormed,
+                              {}),
+                             ("the causal mask shifted by one (q_offset=1)",
+                              latent, {"q_offset": 1})):
+        layers._mla_kv_latent = fault
+        try:
+            out = layers.mla_apply_train(p_card, c32, x_card, **kw).cpu()
+        finally:
+            layers._mla_kv_latent = latent
+        ferr = float((out - want).abs().max())
+        log(f"[lm-mla] planted fault, {label}: max|Δ| {ferr:.3e} (tol "
+            f"{tol:.3e}): {'caught' if ferr > tol else 'MISSED'}")
+        if not ferr > tol:
+            raise AssertionError(f"lm-mla: the card vs CPU check misses "
+                                 f"{label}")
+
+
+def phase_lm_mla(card: str) -> None:
+    """Phase 22: deepseek-v3-671b (MLA, then the sigmoid-routed MoE) at
+    full width and the deepest of DS_DEPTHS that fits: the pairs each MoE
+    layer drops at capacity over `loss_fn` at LM_BATCH x LM_SEQ, that
+    forward timed and profiled, the same with `use_pallas_attn` (no
+    kernel launch: MLA attends with chunked_attention, as the
+    reference), layer 0's MLA card vs CPU in f32 with planted faults,
+    the serve loop with decode held against the forward; then
+    LM_TRAIN_STEPS Adafactor steps at the first of DS_TRAIN_DEPTHS that
+    fits."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import layers, lm, registry
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.inputs import make_batch
+    log(f"[lm-mla] on {card}")
+    t0 = time.perf_counter()
+    full = registry.get_config(MLA_ARCH)
+    shape = tuple(s.repeats for s in full.stacks)
+    with torch.inference_mode():
+        for depth in DS_DEPTHS:
+            params = batch = drops = first = None
+            _free_card()
+            try:
+                cfg, params = _lm_model(MLA_ARCH, "lm-mla", depth)
+                batch = _lm_tokens(cfg)
+                with _moe_drops() as drops, \
+                        _first_call("mla_apply_train") as first:
+                    lm.loss_fn(params, cfg, batch)      # also the warm-up
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"[lm-mla] depth {depth} (dense, MoE) does not fit: "
+                    f"{str(e).splitlines()[0]}")
+        else:
+            raise AssertionError("[lm-mla]: no depth fits")
+        log(f"[lm-mla] depth {depth} (dense, MoE) of {shape}"
+            f"{'' if depth == shape else ' (cut: deeper does not fit)'}")
+        T = LM_BATCH * LM_SEQ
+        mc = cfg.moe
+        log(f"[lm-mla] over loss_fn at {LM_BATCH} x {LM_SEQ} tokens, pairs "
+            f"dropped at capacity {layers.moe_capacity(T, mc)} per MoE layer"
+            f" (mean load {T * mc.top_k / mc.num_experts:g} of {T} tokens x "
+            f"top-{mc.top_k} over {mc.num_experts} experts): "
+            f"{drops['dropped']} of {T * mc.top_k} each; top-{mc.top_k} "
+            f"near-ties (within {MOE_TIE_RTOL:g}): {drops['ties']}")
+        drops = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t1 = time.perf_counter()
+        loss = float(lm.loss_fn(params, cfg, batch))
+        wall = time.perf_counter() - t1
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[lm-mla] loss_fn over {LM_BATCH} x {LM_SEQ} tokens in "
+            f"{cfg.dtype}: loss {loss:.6f}, wall {wall:.3f} s per forward, "
+            f"launches {launches}, peak memory {peak / 2**30:.2f} GiB")
+        _log_profile("lm-mla", lambda: lm.loss_fn(params, cfg, batch), top=8,
+                     host_ops=False)
+        if not np.isfinite(loss) or any(launches.values()):
+            raise AssertionError(f"lm-mla: loss {loss}, launches {launches}")
+        c = dataclasses.replace(cfg, use_pallas_attn=True)
+        _reset_launches()
+        loss_flag = float(lm.loss_fn(params, c, batch))
+        flagged = _launches()
+        log(f"[lm-mla] loss_fn with use_pallas_attn=True: loss "
+            f"{loss_flag!r}, with it off {loss!r} (|Δ| "
+            f"{abs(loss_flag - loss):.3e}, tol {LM_LOSS_TOL:g}); launches "
+            f"{flagged}")
+        if any(flagged.values()) or not abs(loss_flag - loss) <= LM_LOSS_TOL:
+            raise AssertionError("lm-mla: use_pallas_attn launched a kernel "
+                                 "or moved the loss")
+        mla_card_vs_cpu(cfg, first["p"], first["x"])
+        first = None
+        lm_serve(cfg, params, "lm-mla")
+        params = batch = None
+    _free_card()
+    log(f"[time] deepseek forward and serve done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for depth in DS_TRAIN_DEPTHS:
+        _free_card()
+        cfg = dataclasses.replace(_cut(full, depth), microbatch=1)
+        log(f"[lm-mla] train at depth {depth} (dense, MoE) of {shape}: "
+            f"{LM_TRAIN_STEPS} steps on 1 x {DS_TRAIN_SEQ} tokens, microbatch"
+            f" 1 (the config's {full.microbatch} replaced)")
+        try:
+            batch = make_batch(cfg, ShapeSpec("train", DS_TRAIN_SEQ, 1,
+                                              "train"), seed=0, device=DEVICE)
+            _lm_train_run(cfg, batch, "adafactor", LM_ADAFACTOR_LR, "lm-mla")
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[lm-mla] train step at depth {depth} (dense, MoE) does "
+                f"not fit: {str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("[lm-mla]: no train depth fits")
+    _free_card()
+    log(f"[lm-mla] phase took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3655,6 +3911,10 @@ def main() -> int:
         rows[name]["launches"] = n
     log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 21")
     imported = phase_import(card, replay, seg_qm)
+
+    # 22: deepseek-v3-671b's MLA (no kernel, as in the reference)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 22")
+    phase_lm_mla(card)
 
     # each path's own count: the serving runs of 4-5, then 12-15
     for name, main_run in (("graph_aggregate", dense),

@@ -393,8 +393,8 @@ def import_arch_program(arch: str, seq: int = 64, batch: int = 2,
                         device="cuda") -> KernelGraph:
     """Trace one smoke-scale `loss_fn` of an assigned architecture (its
     seed-0 params, `make_batch`'s seed-0 batch) into a cost-model
-    program (corpus entry `arch_<name>`). Raises NotImplementedError for
-    an arch whose mixer is not ported (deepseek-v3-671b: MLA)."""
+    program (corpus entry `arch_<name>`); every arch of the registry
+    imports."""
     from repro_torch.core.device import resolve_device
     from repro_torch.models import lm, registry
     from repro_torch.models.config import ShapeSpec

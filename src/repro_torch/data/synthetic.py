@@ -344,8 +344,9 @@ def whole_model_graph(target_nodes: int, seed: int = 0, *,
 
     Blocks come from the synthetic family generators or, with
     `arch_blocks`, from the LM zoo's programs in turn
-    (`core.hlo_import.import_arch_program`, traced on `device`). An arch
-    that fails to import raises, where the reference silently takes a
+    (`core.hlo_import.import_arch_program`, traced on `device`; all ten
+    archs import). An arch that fails to import (a name the registry
+    does not know) raises, where the reference silently takes a
     synthetic block instead (a deliberate divergence, ROADMAP.md Queue
     3). Consecutive blocks are bridged the way real programs chain
     layers: the previous block's root output is reduced to a scalar

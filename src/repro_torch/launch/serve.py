@@ -1,14 +1,12 @@
 """Serving launcher: batched prefill + decode loop for the LM zoo.
 
-Port of `repro.launch.serve`, for the architectures whose layers the
-port has and whose prompts are tokens: h2o-danube-3-4b, yi-9b, yi-34b,
-qwen3-14b, granite-moe-3b-a800m, mamba2-2.7b and recurrentgemma-9b. The
-loop feeds prompts as `{"tokens"}` alone, as the reference's does;
-musicgen-large (frame embeddings) and llava-next-34b (a patch prefix)
-need more, and are refused with a ValueError that names the missing
-input (the reference fails there with a KeyError). deepseek-v3-671b
-waits for its mixer (ROADMAP.md Queue 1 item 6e) and raises
-NotImplementedError.
+Port of `repro.launch.serve`, for the architectures whose prompts are
+tokens: h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b, granite-moe-3b-a800m,
+deepseek-v3-671b, mamba2-2.7b and recurrentgemma-9b. The loop feeds
+prompts as `{"tokens"}` alone, as the reference's does; musicgen-large
+(frame embeddings) and llava-next-34b (a patch prefix) need more, and
+are refused with a ValueError that names the missing input (the
+reference fails there with a KeyError).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
       --smoke --device cpu --batch 4 --prompt-len 32 --decode-steps 16
@@ -17,7 +15,8 @@ Flags:
   --arch NAME         architecture from `repro_torch.models.registry`
   --smoke | --full    `--smoke` (default) runs the reduced config;
                       `--full` initializes the full-size config on the
-                      device (h2o-danube-3-4b: ~7.9 GB of bf16 params)
+                      device (h2o-danube-3-4b: ~7.9 GB of bf16 params;
+                      deepseek-v3-671b's 1.25 TiB fit no single card)
   --batch N           concurrent request streams          (default 4)
   --prompt-len N      prefill length in tokens            (default 32)
   --decode-steps N    autoregressive steps after prefill  (default 16)

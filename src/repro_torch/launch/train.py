@@ -39,9 +39,10 @@
     --seed and `make_batch`'s inputs (tokens, musicgen's frame
     embeddings and labels, llava's tokens and patch prefix, which --seq
     counts), printing the parameter count and each step's loss and
-    seconds; h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b,
-    granite-moe-3b-a800m, musicgen-large, llava-next-34b and mamba2-2.7b,
-    at their full size or with --smoke their smoke configs:
+    seconds; every arch of the zoo (h2o-danube-3-4b, yi-9b, yi-34b,
+    qwen3-14b, granite-moe-3b-a800m, deepseek-v3-671b, musicgen-large,
+    llava-next-34b, mamba2-2.7b, recurrentgemma-9b), at its full size or
+    with --smoke its smoke config:
 
       PYTHONPATH=src python -m repro_torch.launch.train lm \
           --arch h2o-danube-3-4b --smoke --steps 5 --device cpu

@@ -1,8 +1,9 @@
 """Model zoo: the 10 assigned architectures as selectable configs.
 
 The port's counterpart of `repro.models`: the same exports. `layers`,
-`lm`, `inputs` and `params` hold the dense-attention forward and the
-prefill/decode serve path (the other mixers wait for later slices).
+`lm`, `inputs` and `params` hold every mixer and ffn of the ten archs,
+their forward, train step and prefill/decode serve path, and the
+abstract (meta-device) params, caches and input specs.
 """
 from repro_torch.models.config import ModelConfig, SHAPES, ShapeSpec, \
     Stack, shape_applicable

@@ -1,15 +1,17 @@
 """Layers of the LM zoo: RMSNorm, rotary embedding, GQA attention
-(full-causal or sliding-window, optional qk-norm), the SwiGLU MLP, the
-token-choice MoE ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU
-mixer.
+(full-causal or sliding-window, optional qk-norm), DeepSeek-V3's
+multi-head latent attention (MLA), the SwiGLU MLP, the token-choice MoE
+ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU mixer.
 
-Port of `repro.models.layers` but for MLA, which waits for a later
-slice (ROADMAP.md Queue 1 item 6e). Parameters are dicts
+Port of `repro.models.layers`. Parameters are dicts
 of tensors laid out as the reference's pytrees. Train and prefill attend
 with `chunked_attention` (an online softmax over KV blocks) or, when
 `cfg.use_pallas_attn` is set, with the hand-written flash-attention
 kernel (`repro_torch.kernels.flash_attention`); decode attends over a
 cache (a ring buffer for sliding-window layers) with `cache_attention`.
+MLA attends with `chunked_attention` whatever the flag says, as the
+reference does, and decodes in the absorbed form over its compressed
+cache (the KV latent and one rope key per position).
 The MoE ffn dispatches by a stable sort into per-expert capacity slots
 and drops what overflows, as the reference does; its expert products are
 batched matmuls. The SSD mixer takes the reference's chunked algorithm,
@@ -431,6 +433,137 @@ def moe_apply(params: dict, cfg: ModelConfig,
     if mc.num_shared_experts:
         out = out + mlp_apply(params["shared"], xf)
     return out.reshape(B, S, D).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# MLA — DeepSeek-V3 multi-head latent attention
+# ----------------------------------------------------------------------------
+def mla_init(generator, cfg: ModelConfig, lead: tuple = (),
+             device="cpu") -> dict:
+    """One MLA layer's weights: the query's low-rank down/up projections,
+    the joint KV latent's down projection (latent + the shared rope key),
+    its per-head up projections to k_nope and v, and wo."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    dt = _dt(cfg)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": _winit(generator, lead + (D, m.q_lora_rank), dt,
+                      device=device),
+        "q_norm": _norm_init(m.q_lora_rank, lead, device),
+        "wuq": _winit(generator, lead + (m.q_lora_rank, H, qk), dt,
+                      device=device),
+        "wdkv": _winit(generator, lead + (D, m.kv_lora_rank
+                                          + m.qk_rope_head_dim), dt,
+                       device=device),
+        "kv_norm": _norm_init(m.kv_lora_rank, lead, device),
+        "wuk": _winit(generator, lead + (m.kv_lora_rank, H,
+                                         m.qk_nope_head_dim), dt,
+                      device=device),
+        "wuv": _winit(generator, lead + (m.kv_lora_rank, H, m.v_head_dim),
+                      dt, device=device),
+        "wo": _winit(generator, lead + (H, m.v_head_dim, D), dt,
+                     scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1)),
+                     device=device),
+    }
+
+
+def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """x [B,S,D] -> (q_nope [B,S,H,nope], q_rope [B,S,H,rope])."""
+    m = cfg.mla
+    cq = rmsnorm(params["q_norm"], x @ params["wdq"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wuq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_kv_latent(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """x [B,S,D] -> (ckv [B,S,kv_lora], the rope key shared by every head
+    [B,S,rope]). The rope key is roped as a one-head [B,S,1,rope] view,
+    as the reference's, so that its frequencies run over the last axis."""
+    m = cfg.mla
+    dkv = x @ params["wdkv"]
+    ckv = rmsnorm(params["kv_norm"], dkv[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = rope(dkv[..., None, m.kv_lora_rank:], positions, cfg.rope_theta)
+    return ckv, k_rope[:, :, 0, :]
+
+
+def mla_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                    q_offset: int = 0) -> torch.Tensor:
+    """x [B,S,D] -> [B,S,D]. q = [q_nope, q_rope] and k = [k_nope, k_rope
+    broadcast over the heads], nope + rope columns each; v is zero-padded
+    to that width so that `chunked_attention` applies (which scales q by
+    1/sqrt of the padded width) and its output is sliced back before wo.
+    As in the reference, MLA attends with `chunked_attention` whatever
+    `cfg.use_pallas_attn` says."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    positions = q_offset + torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv, k_rope = _mla_kv_latent(params, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["wuk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, params["wuv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    v_p = F.pad(v, (0, qk - m.v_head_dim))
+    out = chunked_attention(q, k, v_p, causal=True, q_offset=q_offset,
+                            block_kv=cfg.block_kv)[..., :m.v_head_dim]
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, capacity: int,
+                   lead: tuple = (), device="cpu") -> dict:
+    """The compressed cache: the KV latent, the rope key and each slot's
+    position (-1 = empty)."""
+    m = cfg.mla
+    dt = _dt(cfg)
+    return {
+        "ckv": torch.zeros(lead + (batch, capacity, m.kv_lora_rank),
+                           dtype=dt, device=device),
+        "krope": torch.zeros(lead + (batch, capacity, m.qk_rope_head_dim),
+                             dtype=dt, device=device),
+        "k_pos": torch.full(lead + (batch, capacity), -1, dtype=torch.int32,
+                            device=device),
+    }
+
+
+def mla_apply_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
+    """Absorbed-form decode, in the compressed latent space: wuk folds
+    into the query (q_lat = q_nope·wuk, in the model's dtype, then f32),
+    the scores are f32 products with the cached latent and rope key,
+    scaled by 1/sqrt(nope + rope) after the sum, and the f32 context
+    latent, cast to the model's dtype, goes through wuv and wo. x:
+    [B,1,D]; writes the token's latent, rope key and position into
+    `cache` at slot `pos` in place (the reference returns an updated
+    copy) and returns (y [B,1,D], cache)."""
+    m = cfg.mla
+    # on the device without a host copy, which would wait for the card
+    positions = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)       # [B,1,H,*]
+    ckv_new, krope_new = _mla_kv_latent(params, cfg, x, positions)
+    cache["ckv"][:, pos] = ckv_new[:, 0]
+    cache["krope"][:, pos] = krope_new[:, 0]
+    cache["k_pos"][:, pos] = pos
+    ckv, krope, kp = cache["ckv"], cache["krope"], cache["k_pos"]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"])[:, 0]
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv.float())
+         + torch.einsum("bhk,btk->bht", q_rope[:, 0].float(),
+                        krope.float())) * scale
+    valid = (kp >= 0) & (kp <= pos)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bht,btr->bhr", p, ckv.float())
+    v = torch.einsum("bhr,rhk->bhk", ctx_lat.to(_dt(cfg)), params["wuv"])
+    y = torch.einsum("bhk,hkd->bd", v, params["wo"])[:, None, :]
+    return y, cache
 
 
 # ----------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Generic LM assembled from config stacks: `repro.models.lm` for the
-mixers `attn`, `swa`, `ssd` and `rglru` and the ffns `mlp`, `moe` and
-`none`, with the frame-embedding (`cfg.embed_inputs`) and patch-prefix
-(`cfg.num_patch_tokens`) front ends. It runs h2o-danube-3-4b, yi-9b,
-yi-34b, qwen3-14b, granite-moe-3b-a800m, musicgen-large, llava-next-34b,
+mixers `attn`, `swa`, `mla`, `ssd` and `rglru` and the ffns `mlp`, `moe`
+and `none`, with the frame-embedding (`cfg.embed_inputs`) and
+patch-prefix (`cfg.num_patch_tokens`) front ends. It runs all ten archs
+of the zoo: h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b,
+granite-moe-3b-a800m, deepseek-v3-671b, musicgen-large, llava-next-34b,
 mamba2-2.7b and recurrentgemma-9b.
 
 Parameters keep the reference's tree: `embed`, `final_norm`, `lm_head`
@@ -24,17 +25,19 @@ them in place.
 Entry points:
   init_params(generator, cfg, device)   — random params at the
                                           reference's init scales
+  init_abstract(cfg)                    — the same tree on the meta
+                                          device: shapes, no allocation
   forward_trunk / logits_fn / loss_fn   — the train/score forward
   make_optimizer(cfg) / train_step_fn(cfg)
                                         — AdamW or Adafactor, the
                                           microbatched train step
   prefill_step_fn(cfg, capacity)        — (params, batch) -> (logits, cache)
   decode_step_fn(cfg)                   — (params, cache, tokens, pos) -> ...
-  init_cache(cfg, batch, capacity)      — empty decode caches
-The MLA mixer waits for a later slice (ROADMAP.md Queue 1 item 6e):
-deepseek-v3-671b raises NotImplementedError. The reference's
-`init_abstract`, `cache_abstract` and `analytic_param_count` are not
-ported yet (item 6f).
+  init_cache / cache_abstract           — decode caches, real or on
+                                          the meta device
+  analytic_param_count(cfg)             — the count from the abstract
+                                          tree (671,026,419,200 for
+                                          deepseek-v3-671b)
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import hlo_import
@@ -53,8 +57,7 @@ from repro_torch.training.adafactor import adafactor_init, \
 from repro_torch.training.optim import AdamWConfig, adamw_init, \
     adamw_update_, divide, tree_leaves, tree_map, tree_unflatten
 
-_ATTN = ("attn", "swa")
-_MIXERS = _ATTN + ("ssd", "rglru")
+_MIXERS = ("attn", "swa", "mla", "ssd", "rglru")
 
 
 def _parse(elem: str) -> tuple[str, str]:
@@ -65,17 +68,9 @@ def _parse(elem: str) -> tuple[str, str]:
     return m, f
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        "item 6)")
-
-
 def _check_elem(elem: str) -> tuple[str, str]:
     mixer, ffn = _parse(elem)
     if mixer not in _MIXERS:
-        if mixer == "mla":
-            raise _unported(f"the {mixer!r} mixer")
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown ffn {ffn!r}")
@@ -107,7 +102,9 @@ def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
                device="cpu") -> dict:
     mixer, ffn = _check_elem(elem)
     p: dict[str, Any] = {"norm1": L._norm_init(cfg.d_model, lead, device)}
-    if mixer == "ssd":
+    if mixer == "mla":
+        p["mixer"] = L.mla_init(generator, cfg, lead, device)
+    elif mixer == "ssd":
         p["mixer"] = L.ssd_init(generator, cfg, lead, device)
     elif mixer == "rglru":
         p["mixer"] = L.rglru_init(generator, cfg, lead, device)
@@ -134,7 +131,9 @@ def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
                       x: torch.Tensor) -> torch.Tensor:
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if mixer == "ssd":
+    if mixer == "mla":
+        h = L.mla_apply_train(params["mixer"], cfg, h)
+    elif mixer == "ssd":
         h = L.ssd_apply_train(params["mixer"], cfg, h)
     elif mixer == "rglru":
         h = L.rglru_apply_train(params["mixer"], cfg, h)
@@ -147,6 +146,8 @@ def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
 def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
                      capacity: int, lead: tuple = (), device="cpu") -> dict:
     mixer, _ = _check_elem(elem)
+    if mixer == "mla":
+        return L.mla_cache_init(cfg, batch, capacity, lead, device)
     if mixer == "ssd":
         return L.ssd_cache_init(cfg, batch, lead, device)
     if mixer == "rglru":
@@ -160,7 +161,10 @@ def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
                        x: torch.Tensor, cache: dict, pos: int) -> tuple:
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if mixer == "ssd":
+    if mixer == "mla":
+        h, new_cache = L.mla_apply_decode(params["mixer"], cfg, h, cache,
+                                          pos)
+    elif mixer == "ssd":
         h, new_cache = L.ssd_apply_decode(params["mixer"], cfg, h, cache,
                                           pos)
     elif mixer == "rglru":
@@ -180,6 +184,19 @@ def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
     `use_pallas_attn` says."""
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if mixer == "mla":
+        # the latent for the cache, then the train path, which computes
+        # it again (as the reference does); both padded to `capacity`
+        B, S = h.shape[:2]
+        positions = torch.arange(S, device=h.device)
+        ckv, krope = L._mla_kv_latent(params["mixer"], cfg, h, positions)
+        pad = capacity - S
+        cache = {"ckv": F.pad(ckv, (0, 0, 0, pad)),
+                 "krope": F.pad(krope, (0, 0, 0, pad)),
+                 "k_pos": F.pad(positions.to(torch.int32).expand(B, S),
+                                (0, pad), value=-1)}
+        h = L.mla_apply_train(params["mixer"], cfg, h)
+        return _ffn(params, cfg, ffn, x + h), cache
     if mixer == "ssd":
         h, cache = L.ssd_apply_train(params["mixer"], cfg, h,
                                      return_state=True)
@@ -227,6 +244,13 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
               for elem in stack.pattern)
         for stack in cfg.stacks]
     return params
+
+
+def init_abstract(cfg: ModelConfig) -> dict:
+    """`init_params`' tree on the meta device: every leaf's shape and
+    dtype, nothing allocated, no generator (the reference's
+    `jax.eval_shape` of its init)."""
+    return init_params(None, cfg, device="meta")
 
 
 # ----------------------------------------------------------------------------
@@ -388,6 +412,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
             for stack in cfg.stacks]
 
 
+def cache_abstract(cfg: ModelConfig, batch: int, capacity: int) -> list:
+    """`init_cache`'s tree on the meta device (shapes and dtypes)."""
+    return init_cache(cfg, batch, capacity, device="meta")
+
+
 def prefill_step_fn(cfg: ModelConfig, capacity: int):
     def prefill(params, batch):
         x = _embed_inputs(params, cfg, batch)
@@ -441,3 +470,8 @@ def param_count(params) -> int:
         else:
             yield t
     return int(sum(x.numel() for x in leaves(params)))
+
+
+def analytic_param_count(cfg: ModelConfig) -> int:
+    """The parameter count from the abstract tree, with no allocation."""
+    return param_count(init_abstract(cfg))

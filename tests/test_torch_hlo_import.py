@@ -28,7 +28,7 @@ from repro_torch.data.fusion import apply_fusion, default_fusion
 
 ARCHS = ["yi-9b", "mamba2-2.7b", "granite-moe-3b-a800m",
          "recurrentgemma-9b", "musicgen-large", "h2o-danube-3-4b",
-         "yi-34b", "qwen3-14b", "llava-next-34b"]
+         "yi-34b", "qwen3-14b", "llava-next-34b", "deepseek-v3-671b"]
 
 # DOT output shapes that differ by a permutation: (reference, port). Each
 # is chunked attention's scores: the reference's einsum "bsgrd,btgd->
@@ -45,6 +45,9 @@ PERMUTED_DOTS = {
     "yi-34b": [((2, 2, 32, 64, 3), (2, 2, 3, 64, 32))],
     "qwen3-14b": [((2, 2, 32, 64, 2), (2, 2, 2, 64, 32))],
     "llava-next-34b": [((2, 2, 32, 64, 3), (2, 2, 3, 64, 32))],
+    # MLA's scores, once a stack (one MLA layer each): every head is a kv
+    # head (k is broadcast over them), rep 1
+    "deepseek-v3-671b": [((2, 4, 16, 64, 1), (2, 4, 1, 64, 16))] * 2,
 }
 
 # opcode counts, port minus reference
@@ -109,6 +112,14 @@ HIST_DIFF = {
                        "iota": -1, "multiply": -1, "parameter": -1,
                        "reduce-max": -1, "reduce-sum": -1, "reshape": -4,
                        "select": -2, "slice": 4, "subtract": -2},
+    "deepseek-v3-671b": {"add": -12, "and": -1, "broadcast": -41,
+                         "compare": -15, "constant": -81, "convert": -7,
+                         "copy": -1, "custom-call": -4, "divide": -9,
+                         "exponential": -1, "gather": -3, "iota": -3,
+                         "multiply": -2, "parameter": -4, "reduce-max": -1,
+                         "reduce-sum": -1, "remainder": -1, "reshape": -9,
+                         "scatter": 1, "select": -12, "sign": -2,
+                         "slice": 11, "subtract": -3},
 }
 
 # each differing opcode, traced to the calls the two tracers break down
@@ -135,7 +146,9 @@ WHY = {
              "and value block inside the loop and the RG-LRU scan's "
              "strided halves with one getitem each, where the reference "
              "reshapes K and V into blocks before its scan and slices "
-             "with lax.slice_in_dim",
+             "with lax.slice_in_dim; MLA's rope-key columns "
+             "(dkv[..., None, kv_lora:]) are a slice in the port and a "
+             "gather in the reference",
     "reshape": "the reference reshapes K and V into [nb, B, blk, KH, hd] "
                "blocks before its scan, squeezes after each integer index "
                "(x[:, -1]), and reshapes the MoE's routing; the port's "
@@ -176,7 +189,10 @@ WHY = {
     "dynamic-slice": "jnp indexing with an integer (h[:, -1], cum[:, :, -1]) "
                      "lowers to dynamic_slice; the port's getitem is a slice",
     "gather": "the MoE's dispatch: the reference gathers the expert inputs "
-              "with take_along_axis, the port indexes by the sorted order",
+              "with take_along_axis, the port indexes by the sorted order; "
+              "jnp indexing that mixes None and a slice (MLA's "
+              "dkv[..., None, kv_lora:]) is a gather in the jaxpr, one "
+              "slice in the port",
     "scatter": "the MoE's combine: the port scatters the expert outputs "
                "back with index_add_ (one node)",
     "and": "the MoE's capacity mask (capacity and validity) in the "
@@ -239,8 +255,13 @@ def test_reference_figures_of_the_five_benchmark_archs():
 
 
 def test_mla_arch_raises():
-    with pytest.raises(NotImplementedError, match="'mla' mixer"):
-        H.import_arch_program("deepseek-v3-671b", device="cpu")
+    """deepseek-v3-671b (the MLA mixer) imports: per MLA layer its
+    low-rank projections, the latent's up projections, the attention's
+    two products and wo, then the dense and the MoE ffn and the head: 27
+    DOTs, as in the reference's program."""
+    g = H.import_arch_program("deepseek-v3-671b", device="cpu")
+    assert len(_dots(g)) == 27 and g.num_nodes < H._MAX_NODES_PER_PROGRAM
+    assert g.name == "arch_deepseek-v3-671b"
 
 
 def test_programs_are_deterministic():
@@ -356,10 +377,11 @@ def test_import_needs_the_card_by_default():
 
 
 # ------------------------------------------------ whole_model_graph
-def test_whole_model_graph_takes_arch_blocks():
-    """Blocks of the imported programs in turn, bridged, deterministic;
-    an arch that does not import raises (the reference takes a synthetic
-    block instead)."""
+def test_whole_model_graph_takes_arch_blocks(monkeypatch):
+    """Blocks of the imported programs in turn, bridged, deterministic,
+    deepseek-v3-671b's too; an arch that does not import raises (the
+    reference takes a synthetic block instead), shown with an importer
+    that raises."""
     from repro_torch.data.synthetic import whole_model_graph
     archs = ("yi-9b", "mamba2-2.7b")
     g = whole_model_graph(1000, seed=0, arch_blocks=archs, device="cpu")
@@ -368,6 +390,12 @@ def test_whole_model_graph_takes_arch_blocks():
     assert kernel_hash(g) == kernel_hash(again)
     per = [len(_dots(H.import_arch_program(a, device="cpu"))) for a in archs]
     assert len(_dots(g)) >= sum(per)
-    with pytest.raises(NotImplementedError, match="'mla' mixer"):
-        whole_model_graph(500, arch_blocks=("deepseek-v3-671b",),
-                          device="cpu")
+    ds = whole_model_graph(500, seed=0, arch_blocks=("deepseek-v3-671b",),
+                           device="cpu")
+    assert ds.num_nodes >= 500 and len(_dots(ds)) >= 27
+
+    def refuse(arch, **kw):
+        raise NotImplementedError(f"{arch} does not import")
+    monkeypatch.setattr(H, "import_arch_program", refuse)
+    with pytest.raises(NotImplementedError, match="does not import"):
+        whole_model_graph(500, arch_blocks=("yi-9b",), device="cpu")

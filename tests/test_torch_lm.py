@@ -258,13 +258,37 @@ def test_serve_loop_greedy_follows_the_logits():
     assert torch.equal(logits[:, 11:-1].argmax(-1), gen)
 
 
+def _tree(tree, path=""):
+    """(path, shape, dtype) of every leaf, dict keys sorted as JAX
+    flattens them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree(tree[k],
+                                                       f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _tree(t, f"{path}/{i}")]
+    return [(path, tuple(tree.shape),
+             str(tree.dtype).replace("torch.", ""))]
+
+
 @pytest.mark.parametrize("entry", ["init_params", "init_cache"])
 def test_unported_archs_raise(entry):
-    """deepseek-v3-671b (MLA) is the arch still unported: its params and
-    its decode cache raise."""
+    """deepseek-v3-671b (MLA), the last arch to be ported, builds: its
+    params' and its decode cache's trees are the reference's (paths,
+    shapes, dtypes), and the empty cache's values too."""
     cfg = registry.get_smoke_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        if entry == "init_params":
-            lm.init_params(torch.Generator(), cfg, device="cpu")
-        else:
-            lm.init_cache(cfg, 2, 16, device="cpu")
+    jcfg = jreg.get_smoke_config("deepseek-v3-671b")
+    if entry == "init_params":
+        got = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+        want = _np(jlm.init_params(jax.random.key(0), jcfg))
+    else:
+        got = lm.init_cache(cfg, 2, 16, device="cpu")
+        want = _np(jlm.init_cache(jcfg, 2, 16))
+        for g, w in zip(jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(want)):
+            assert np.array_equal(g.numpy(), w)
+    assert _tree(got) == _tree(want)
+    assert {p.rsplit("/", 1)[1] for p, _, _ in _tree(got)} >= (
+        {"wdq", "wuq", "wdkv", "wuk", "wuv", "wo"} if entry == "init_params"
+        else {"ckv", "krope", "k_pos"})

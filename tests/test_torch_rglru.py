@@ -245,9 +245,13 @@ def test_init_params_builds_the_full_config_on_meta():
 
 
 def test_mla_alone_stays_unported():
-    with pytest.raises(NotImplementedError, match="'mla' mixer"):
-        lm.init_params(None, registry.get_smoke_config("deepseek-v3-671b"),
-                       device="meta")
+    """The full deepseek-v3-671b config (MLA) builds on the meta device,
+    and its count is the reference's, 671,026,419,200."""
+    params = lm.init_params(None, registry.get_config("deepseek-v3-671b"),
+                            device="meta")
+    n = lm.param_count(params)
+    assert n == jlm.analytic_param_count(jreg.get_config("deepseek-v3-671b"))
+    assert n == 671_026_419_200
 
 
 # ----------------------------------------------- flash at head dim 256

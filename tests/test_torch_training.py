@@ -837,10 +837,21 @@ def test_cli_trains_and_writes_a_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["cost-model", "--dp", "-1"], SystemExit, "--dp must be >= 0"),
-    (["cost-model", "--dp", "2", "--mp", "0"], SystemExit, "--mp >= 1"),
-    (["lm", "--arch", "deepseek-v3-671b", "--smoke"],
-     NotImplementedError, "item 6")])
+    (["cost-model", "--dp", "2", "--mp", "0"], SystemExit, "--mp >= 1")])
 def test_cli_refuses_unported(argv, exc, match):
     from repro_torch.launch.train import main
     with pytest.raises(exc, match=match):
         main(argv + ["--device", "cpu"])
+
+
+def test_cli_trains_deepseek_on_the_cpu(capsys):
+    """`train lm` takes deepseek-v3-671b (MLA, then the sigmoid-routed
+    MoE) at its smoke config."""
+    from repro_torch.launch.train import main
+    main(["lm", "--arch", "deepseek-v3-671b", "--smoke", "--steps", "2",
+          "--seq", "32", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("arch=deepseek-v3-671b-smoke params=")
+    assert [line.split(":")[0] for line in out[1:]] == ["step 0", "step 1"]
+    assert all(np.isfinite(float(line.split("loss=")[1].split()[0]))
+               for line in out[1:])
