@@ -212,6 +212,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
              a 10k-node `whole_model_graph` of their blocks scored through
              the segmented service (budget 512, segment_aggregate) in f32
              and int8, kernels on vs off within 1e-4·max|pred|.
+22. lm-mla — deepseek-v3-671b (MLA, absorbed decode) at full width,
+             its depth cut (see `phase_lm_mla`).
+23. roofline — the dry-run lowering (`launch.lowering`, meta tensors,
+             no card) checked against the card: 16's AdamW train cell
+             (its depth, 4 x 2048 tokens, microbatch 2) lowered on a 1x1
+             mesh in a process of its own: counted FLOPs, model FLOPs
+             and their ratio, the H100 compute and memory terms, the
+             predicted argument bytes and the peak estimate beside 16's
+             measured s a step and peak memory (fails if the compute
+             term exceeds the step or the arguments exceed the peak);
+             beside it, in a second process, `python -m
+             repro_torch.launch.dryrun --arch deepseek-v3-671b --shape
+             train_4k --mesh single --workers 7` on a fake 256-rank
+             16x16 mesh (its cost and peak from the probes, lowered in
+             seven processes): per-device params and
+             optimizer bytes, whether they and the peak estimate fit
+             80 GB and the card's own memory, the ops the lowering ran
+             replicated and their share of the collective bytes, and
+             the H100 terms, the collective one split into sharded and
+             replicated-op bytes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -3768,6 +3788,165 @@ def phase_lm_mla(card: str) -> None:
     log(f"[lm-mla] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------------------- 23
+ROOFLINE_ARCH, ROOFLINE_SHAPE = "deepseek-v3-671b", "train_4k"
+# lowers [lm-train]'s cell on a one-rank fake group; prints its record
+_ROOFLINE_CELL = """
+import dataclasses, json, sys
+from repro_torch.launch.lowering import lower_cell
+from repro_torch.launch.mesh import fake_world, make_mesh
+from repro_torch.models import registry
+from repro_torch.models.config import ShapeSpec, Stack
+arch, depth, micro, seq, batch = json.loads(sys.argv[1])
+full = registry.get_config(arch)
+cfg = dataclasses.replace(full, microbatch=micro, optimizer="adamw",
+                          stacks=(Stack(full.stacks[0].pattern, depth),))
+with fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cell = lower_cell(arch, cfg, ShapeSpec("train", seq, batch, "train"),
+                      mesh, "1x1")
+print(json.dumps({"cost": cell.cost_analysis,
+                  "memory": vars(cell.memory_analysis),
+                  "collectives": cell.collective_bytes,
+                  "params_bytes": cell.params_bytes,
+                  "fallbacks": cell.fallbacks}))
+"""
+
+
+def _cpu_process(args: list) -> subprocess.Popen:
+    """Starts `python args...` from the checkout with the card hidden (the
+    dry-run needs none, and its fake process group stays in it)."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc: subprocess.Popen, timeout: int = 300) -> str:
+    """`proc`'s standard output once it exits 0; kills it past `timeout`
+    and raises on any other end."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"[roofline] {proc.args[1:4]} ran past "
+                             f"{timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"[roofline] {proc.args[1:4]} failed "
+                             f"({proc.returncode}): {out[-1500:]} "
+                             f"{err[-3000:]}")
+    return out
+
+
+def phase_roofline(card: str, lm_train: dict) -> None:
+    """Phase 23: the lowering's counts against [lm-train]'s measured step,
+    then deepseek-v3-671b's train cell on the 16x16 mesh."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import SHAPES, registry
+    from repro_torch.models.config import ShapeSpec, Stack
+    from repro_torch.roofline.analysis import H100_HW, model_flops, \
+        roofline_terms
+    log(f"[roofline] on {card}")
+    t0 = time.perf_counter()
+    depth = lm_train["depth"]
+    measured_s = lm_train["adamw"]["s"]
+    peak = lm_train["adamw"]["peak"]
+    # both lowerings at once, each in a CPU process of its own
+    out_dir = tempfile.TemporaryDirectory()
+    dryrun = _cpu_process(["-m", "repro_torch.launch.dryrun", "--arch",
+                           ROOFLINE_ARCH, "--shape", ROOFLINE_SHAPE,
+                           "--mesh", "single", "--workers", "7",
+                           "--out", out_dir.name])
+    try:
+        out = _finish(_cpu_process(["-c", _ROOFLINE_CELL, json.dumps(
+            [ARCH, depth, LM_TRAIN_MICRO, LM_TRAIN_SEQ, LM_TRAIN_BATCH])]))
+    except BaseException:
+        dryrun.kill()
+        dryrun.communicate()
+        out_dir.cleanup()
+        raise
+    cell = json.loads(out.strip().splitlines()[-1])
+    full = registry.get_config(ARCH)
+    cfg = dataclasses.replace(full, microbatch=LM_TRAIN_MICRO,
+                              stacks=(Stack(full.stacks[0].pattern, depth),))
+    shape = ShapeSpec("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    rec = dict(cell, arch=ARCH, shape="train", mesh="1x1", devices=1)
+    row = roofline_terms(rec, cfg, shape, H100_HW)
+    flops = cell["cost"]["flops"]
+    mf = model_flops(cfg, shape, cell["params_bytes"] // 2)
+    args_bytes = cell["memory"]["argument_size_in_bytes"]
+    t_cell = time.perf_counter() - t0
+    log(f"[roofline] {ARCH} train cell of [lm-train] (depth {depth}, "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, microbatch "
+        f"{LM_TRAIN_MICRO}, AdamW) lowered on a 1x1 mesh, {t_cell:.1f} s "
+        f"to its record: counted FLOPs {flops:.6e}, model FLOPs "
+        f"{mf:.6e} (6·N·tokens + head), useful ratio "
+        f"{row.useful_ratio:.4f}")
+    log(f"[roofline] ops run replicated: {cell['fallbacks'] or 'none'} "
+        f"(one rank: plain meta tensors)")
+    log(f"[roofline] H100 terms: compute {row.compute_s:.6f} s (989 TF/s "
+        f"bf16), memory {row.memory_s:.6f} s (unfused bytes "
+        f"{cell['cost']['bytes accessed']:.6e} at 3.35 TB/s); predicted "
+        f"argument bytes {args_bytes} ({args_bytes / 1e9:.3f} GB)")
+    est_peak = cell["memory"]["peak_memory_in_bytes"]
+    log(f"[roofline] [lm-train] measured: {measured_s:.6f} s a step, peak "
+        f"{peak} bytes ({peak / 1e9:.3f} GB); roofline reached: compute "
+        f"term / measured = {row.compute_s / measured_s:.4f}, arguments "
+        f"/ peak = {args_bytes / peak:.4f}; the lowering's peak estimate "
+        f"(live storages of the eager step) {est_peak} bytes = "
+        f"{est_peak / peak:.4f} of the measured peak")
+    if not row.compute_s <= measured_s:
+        raise AssertionError(f"[roofline] compute term {row.compute_s} s "
+                             f"exceeds the measured step {measured_s} s")
+    if not args_bytes <= peak:
+        raise AssertionError(f"[roofline] predicted arguments {args_bytes} "
+                             f"exceed the measured peak {peak}")
+
+    with out_dir:
+        _finish(dryrun, timeout=600)
+        path = os.path.join(
+            out_dir.name,
+            f"pod16x16__{ROOFLINE_ARCH}__{ROOFLINE_SHAPE}.json")
+        with open(path) as f:
+            ds = json.load(f)
+    if ds.get("status") != "ok":
+        raise AssertionError(f"[roofline] dry-run record: {ds}")
+    ds_cfg = registry.get_config(ROOFLINE_ARCH)
+    ds_row = roofline_terms(ds, ds_cfg, SHAPES[ROOFLINE_SHAPE], H100_HW)
+    parts = ds["arguments"]
+    dev_total = torch.cuda.get_device_properties(0).total_memory
+    arg_b = ds["memory"]["argument_size_in_bytes"]
+    ds_peak = ds["memory"]["peak_memory_in_bytes"]
+    log(f"[roofline] {ROOFLINE_ARCH} {ROOFLINE_SHAPE} on the 16x16 mesh "
+        f"(256 ranks; cost from {ds['cost_from']}, lowered in "
+        f"{ds['compile_s']} s beside the cell): per device params "
+        f"{parts['params']} B, optimizer ({ds_cfg.optimizer}) "
+        f"{parts['optimizer']} B, batch {parts['batch']} B, arguments "
+        f"{arg_b} B ({arg_b / 1e9:.3f} GB)")
+    for what, n in (("arguments", arg_b), ("peak estimate (probes)",
+                                            ds_peak)):
+        log(f"[roofline] fits: {what} {n / 1e9:.3f} GB a device against "
+            f"H100_HW's {H100_HW['hbm_bytes'] / 1e9:g} GB: "
+            f"{'yes' if n <= H100_HW['hbm_bytes'] else 'NO'}; against this "
+            f"card's {dev_total / 1e9:.3f} GB: "
+            f"{'yes' if n <= dev_total else 'NO'}")
+    coll = sum(v for k, v in ds["collectives"].items() if k != "_counts")
+    fb = ds["fallback_collective_bytes"]
+    log(f"[roofline] ops run replicated (summed over the probes): "
+        f"{ds['fallbacks']}; their collective bytes {fb:.6e} of "
+        f"{coll:.6e} a device ({fb / coll:.6f})")
+    log(f"[roofline] H100 terms a step: compute {ds_row.compute_s:.4f} s, "
+        f"memory {ds_row.memory_s:.4f} s, collective "
+        f"{ds_row.collective_s:.4f} s (at 50 GB/s a card: sharded "
+        f"{(coll - fb) / H100_HW['link_bw']:.4f} s, from the ops run "
+        f"replicated {fb / H100_HW['link_bw']:.4f} s) -> "
+        f"{ds_row.dominant}; useful ratio {ds_row.useful_ratio:.4f}")
+    log(f"[roofline] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3889,7 +4068,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ddp_tmp:
         ddp = phase_ddp(card, trained, ddp_tmp)
     del trained
-    phase_lm_train(card)
+    lm_train = phase_lm_train(card)
 
     # 17-19: the MoE ffn, the two front ends, the SSD mixer
     log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 17")
@@ -3915,6 +4094,10 @@ def main() -> int:
     # 22: deepseek-v3-671b's MLA (no kernel, as in the reference)
     log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 22")
     phase_lm_mla(card)
+
+    # 23: the dry-run lowering against [lm-train]'s step, deepseek on 16x16
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 23")
+    phase_roofline(card, lm_train)
 
     # each path's own count: the serving runs of 4-5, then 12-15
     for name, main_run in (("graph_aggregate", dense),

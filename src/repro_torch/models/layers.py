@@ -19,9 +19,10 @@ its inter-chunk `lax.scan` a Python loop over chunks; like the
 reference it does not call the `ssd_scan` kernel. The RG-LRU's linear
 recurrence mirrors `jax.lax.associative_scan`'s odd/even recursion, so
 that it combines in the reference's order in about 2·log2(S) elementwise
-passes, not a loop over S. The reference's
-sharding annotations (`constrain`) have no counterpart here and are
-dropped.
+passes, not a loop over S. The reference's sharding annotation of the
+MoE dispatch buffer stays (`sharding.context.constrain(..., "moe_ecd")`):
+the identity unless a dry-run lowers the step on DTensors under an
+activation mapping.
 
 Scalars that the reference casts to the activations' dtype before a
 multiply (`q * scale`, the embedding's `sqrt(d_model)`) are cast here
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.core.hlo_import import loop
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.sharding.context import constrain
 
 NEG_INF = -1e30
 
@@ -105,7 +107,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Walks KV blocks with a running (max, normalizer, accumulator): memory
     bounded by one block of scores. q is scaled in its own dtype before
-    the f32 cast, as the reference does."""
+    the f32 cast, as the reference does. Under a dry-run's activation
+    mapping the queries split by position over the model axis and the
+    keys and values are whole there (`constrain`; not in the reference,
+    where GSPMD finds a layout, and the identity otherwise)."""
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_kv")
+    v = constrain(v, "attn_kv")
     B, S, H, hd = q.shape
     T, KH = k.shape[1], k.shape[2]
     rep = H // KH
@@ -417,7 +425,7 @@ def moe_apply(params: dict, cfg: ModelConfig,
     slot_used = torch.zeros(E * cap + 1, dtype=torch.bool, device=x.device)
     slot_used[slot_sorted] = keep
     xe = xf[dispatch_tok[:E * cap]] * slot_used[:E * cap, None]
-    xe = xe.reshape(E, cap, D)
+    xe = constrain(xe.reshape(E, cap, D), "moe_ecd")
 
     h = _silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe,
                                                            params["w_up"])

@@ -52,6 +52,7 @@ from repro_torch.core import hlo_import
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.context import constrain, constrain_batch_tree
 from repro_torch.training.adafactor import adafactor_init, \
     adafactor_update_
 from repro_torch.training.optim import AdamWConfig, adamw_init, \
@@ -140,7 +141,10 @@ def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
     else:
         h = L.attn_apply_train(params["mixer"], cfg, h,
                                window=_mixer_window(cfg, mixer))
-    return _ffn(params, cfg, ffn, x + h)
+    # the mixer's output as the block's (not in the reference: DTensor
+    # would otherwise carry its pending sum over "model" into the ffn)
+    h = constrain(h, "act_btd")
+    return constrain(_ffn(params, cfg, ffn, x + h), "act_btd")
 
 
 def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
@@ -268,11 +272,11 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     embeddings, after llava's patch embeddings (`batch["patch_embeds"]`,
     [B,P,D], cast to the tokens' dtype) where the config has them."""
     if cfg.embed_inputs:
-        return batch["embeddings"].to(L._dt(cfg))
+        return constrain(batch["embeddings"].to(L._dt(cfg)), "act_btd")
     tok = _embed_tokens(params, cfg, batch["tokens"])
     if cfg.num_patch_tokens:
         tok = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
-    return tok
+    return constrain(tok, "act_btd")
 
 
 def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -334,6 +338,16 @@ def make_optimizer(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
             lambda p, g, s: adamw_update_(p, g, s, optim_cfg))
 
 
+def split_microbatches(batch: dict, n_micro: int) -> list[dict]:
+    """The global batch as `n_micro` microbatches: [n_micro, mb, ...]
+    views, the microbatch dim over dp under a mapping (the reference's
+    reshape and constraint), then one view a microbatch."""
+    stacked = constrain_batch_tree(tree_map(
+        lambda x: x.reshape((n_micro, x.shape[0] // n_micro)
+                            + tuple(x.shape[1:])), batch), leading=1)
+    return [tree_map(lambda x: x[i], stacked) for i in range(n_micro)]
+
+
 def train_step_fn(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
     """`train_step(params, opt_state, batch) -> (params, opt_state,
     stats)`: the global batch split into microbatches of
@@ -367,8 +381,7 @@ def train_step_fn(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
             raise ValueError(f"global batch {gb} does not split into "
                              f"microbatches of {mb}")
         n_micro = gb // mb
-        micro = [tree_map(lambda x: x[i * mb:(i + 1) * mb], batch)
-                 for i in range(n_micro)]
+        micro = split_microbatches(batch, n_micro)
         dev = leaves[0].device
         if cfg.grad_accum == "grad_of_scan":
             s = torch.zeros((), dtype=torch.float32, device=dev)
@@ -379,8 +392,7 @@ def train_step_fn(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
             grads = grads_of(loss_mean, leaves)
             loss_sum = loss_mean.detach() * n_micro
         else:
-            grads = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=acc_dtype) for p in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for mbatch in micro:
                 loss = loss_fn(params, cfg, mbatch)
