@@ -232,6 +232,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
              replicated and their share of the collective bytes, and
              the H100 terms, the collective one split into sharded and
              replicated-op bytes.
+24. examples — the six example twins (`repro_torch.examples`, the
+             reference scripts of examples/) through their `main()` at
+             the reference's defaults: fusion_search;
+             autotune_tilesize, whose Part B ranks the bf16 flash kernel's
+             four (block_q, block_k) instantiations and times each on the
+             card at S=4096, hd=128 (their launches on the kernels line);
+             quickstart, whose serving runs once more with the kernels on
+             (dense: graph_aggregate), every record's tile scores held
+             against the kernels off (scores within 1e-4·max|pred|, picks
+             equal, near-ties counted); serve_lm; train_cost_model dense
+             and sparse, evaluating and autotuning with the kernels on
+             (graph_aggregate, segment_aggregate), then dense again
+             resumed from its checkpoint (the same held-out and autotuner
+             lines); autotune_zoo with its estimators on the kernels
+             (segment_aggregate), each arch searched again with them off
+             (the same fusion decision, tile picks and budget; the learned
+             scores of every fused kernel's candidate tiles held as
+             above). Then every flash instantiation against the plain
+             version at [zoo-kernels]' bf16 layers (h2o-danube-3-4b,
+             granite-moe-3b-a800m, musicgen-large, llava-next-34b), each
+             timed beside its bound, the plain version and SDPA.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -739,6 +760,8 @@ def _reset_launches() -> None:
     ga.launches = sa.launches = sa.launches_i8 = 0
     fa.launches = fa.launches_tc = fa.launches_f32 = ss.launches = 0
     fa.launches_hd256 = fa.launches_hd256_f32 = 0
+    for shape in fa.launches_sm90:
+        fa.launches_sm90[shape] = 0
 
 
 def _launches() -> dict:
@@ -3947,6 +3970,279 @@ def phase_roofline(card: str, lm_train: dict) -> None:
     log(f"[roofline] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------------------- 24
+# the [zoo-kernels] layers each bf16 flash instantiation is held at:
+# (label, B, S, H, KH, hd, causal, window, timed calls)
+EX_FLASH_CASES = (
+    ("layer", LM_BATCH, LM_SEQ, 32, 8, 120, True, 4096, 5),
+    ("granite-layer", LM_BATCH, LM_SEQ, 24, 8, 64, True, None, 5),
+    ("musicgen-layer", LM_BATCH, LM_SEQ, 32, 32, 64, True, None, 5),
+    ("llava-layer", LM_BATCH, LM_SEQ, 56, 8, 128, True, None, 5))
+# the kernels-line row of each instantiation ((128, 128) is the default,
+# the "flash_attention" row of [zoo-kernels])
+FLASH_BLOCK_ROWS = {(128, 128): "flash_attention",
+                    (128, 64): "flash_attention_128x64",
+                    (64, 128): "flash_attention_64x128",
+                    (64, 64): "flash_attention_64x64"}
+# two candidates of one list within this of each other (relative to the
+# list's largest |score|) are a near-tie: counted, not excused
+EX_TIE_RTOL = 1e-5
+
+
+def _example(name: str, argv: list, **kw):
+    """`repro_torch.examples.<name>.main(argv, **kw)` with its stdout
+    logged as [examples] lines. Returns (main's result, its lines)."""
+    import importlib
+    import io
+
+    import torch
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[examples] {name}: {line}")
+    log(f"[examples] {name} {' '.join(argv)}"
+        f"{' use_kernels' if kw.get('use_kernels') else ''}: "
+        f"{seconds:.1f} s wall")
+    return out, lines
+
+
+def _hold_scores(label, on, off, groups) -> None:
+    """Kernels on vs off over candidate lists (`groups`: slices of the
+    score vectors): every score within the serving limit, each list's
+    pick equal; near-ties within a list counted and printed."""
+    import numpy as np
+    on, off = np.asarray(on), np.asarray(off)
+    err, tol = float(np.max(np.abs(on - off))), _tol(off)
+    picks = sum(int(np.argmin(on[g]) != np.argmin(off[g])) for g in groups)
+    ties = sum(_ties(off[g], EX_TIE_RTOL * float(np.max(np.abs(off[g]))))
+               for g in groups)
+    log(f"[examples] {label}, kernels on vs off: {on.size} scores in "
+        f"{len(groups)} candidate lists, max_abs_err={err:.3e} (tol "
+        f"{tol:.3e}), picks that differ {picks}, near-ties (within "
+        f"{EX_TIE_RTOL:g} of the list's max) {ties}")
+    if not np.all(np.isfinite(on)) or not err <= tol or picks:
+        raise AssertionError(f"{label}: kernels on vs off: err {err} "
+                             f"(tol {tol}), {picks} picks differ")
+
+
+def _groups(sizes) -> list:
+    import numpy as np
+    ends = np.cumsum(sizes)
+    return [slice(int(e - n), int(e)) for e, n in zip(ends, sizes)]
+
+
+def _need(label, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"{label}: {name} never launched")
+
+
+def ex_quickstart() -> dict:
+    """quickstart at its defaults, then its serving step again with the
+    trained model under `use_pallas_aggregate` (dense: graph_aggregate),
+    every record's tile scores held against the kernels-off service."""
+    import dataclasses
+
+    from repro_torch.examples import quickstart
+    qs, _ = _example("quickstart", ["--device", DEVICE])
+    on_cfg = dataclasses.replace(qs["model_cfg"], use_pallas_aggregate=True)
+    _reset_launches()
+    on = quickstart.serve(qs["trainer"].model, on_cfg, qs["norm"],
+                          qs["dataset"], qs["sim"])
+    launches = _launches()
+    _need("quickstart serving", launches, ["graph_aggregate"])
+    recs = qs["dataset"].records
+    scores = {}
+    for tag, served in (("on", on), ("off", qs["served"])):
+        scorer = served["service"].tile_scorer()      # from its cache
+        scores[tag] = [s for r in recs for s in scorer(r.kernel, r.tiles)]
+    _hold_scores("quickstart tile scores", scores["on"], scores["off"],
+                 _groups([len(r.tiles) for r in recs]))
+    log(f"[examples] quickstart serving with the kernels on: launches "
+        f"graph_aggregate={launches['graph_aggregate']}; mean tile APE "
+        f"{on['metrics']['mean_ape']:.4f}% (off "
+        f"{qs['served']['metrics']['mean_ape']:.4f}%)")
+    return {"graph_aggregate": launches["graph_aggregate"]}
+
+
+def ex_train_cost_model(tmp: str) -> dict:
+    """train_cost_model at its defaults, dense then sparse, evaluating
+    and autotuning with the kernels on, into a temporary --ckpt-dir; the
+    dense run once more, resumed from its last checkpoint, must report
+    what the first did."""
+    out = {"graph_aggregate": 0, "segment_aggregate": 0}
+    lines = {}
+    for run, adjacency, kernel in (("dense", "dense", "graph_aggregate"),
+                                   ("sparse", "sparse", "segment_aggregate"),
+                                   ("resumed", "dense", "graph_aggregate")):
+        ckpt = os.path.join(tmp, adjacency)
+        _reset_launches()
+        _, lines[run] = _example(
+            "train_cost_model", ["--adjacency", adjacency, "--ckpt-dir",
+                                 ckpt, "--device", DEVICE],
+            use_kernels=True)
+        launches = _launches()
+        _need(f"train_cost_model {run}", launches, [kernel])
+        out[kernel] += launches[kernel]
+        if not os.path.exists(os.path.join(ckpt, "metrics.jsonl")):
+            raise AssertionError(f"train_cost_model {run}: no metrics.jsonl")
+    # the resumed run trains no step (its loss reads nan) and must give
+    # the first run's held-out metrics and autotuner result
+    same = lines["resumed"][-2:] == lines["dense"][-2:]
+    log(f"[examples] train_cost_model resumed from its last checkpoint: "
+        f"held-out and autotuner lines {'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("train_cost_model: the resumed run differs")
+    return out
+
+
+def ex_autotune_zoo() -> dict:
+    """autotune_zoo at its defaults with the learned estimators under
+    `use_pallas_aggregate` (sparse: segment_aggregate), then each arch's
+    search again with the kernels off: the same fusion decision and tile
+    picks, and the learned scores of every fused kernel's candidate
+    tiles held as in quickstart."""
+    import dataclasses
+
+    from repro_torch.data.tile_dataset import enumerate_tiles
+    from repro_torch.examples import autotune_zoo
+    _reset_launches()
+    zoo, _ = _example("autotune_zoo", ["--device", DEVICE],
+                      use_kernels=True)
+    launches = _launches()
+    _need("autotune_zoo", launches, ["segment_aggregate"])
+    off_cfg = dataclasses.replace(zoo["serve_cfg"],
+                                  use_pallas_aggregate=False)
+    model, norm, sim = zoo["trainer"].model, zoo["norm"], zoo["sim"]
+    for arch, t_on in zoo["runs"].items():
+        t_off = autotune_zoo.tune_arch(t_on["prog"], model, off_cfg, norm,
+                                       zoo["args"], sim)
+        same = (t_on["fusion"].best_decision == t_off["fusion"].best_decision
+                and [r.chosen_tile for r in t_on["tiles"].results]
+                == [r.chosen_tile for r in t_off["tiles"].results]
+                and t_on["meter"].spent_s == t_off["meter"].spent_s)
+        log(f"[examples] autotune_zoo {arch}, kernels on vs off: fusion "
+            f"decision, tile picks and budget {'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"autotune_zoo {arch}: picks differ")
+        cands = [[k.with_tile(tile) for tile in enumerate_tiles(k, 12,
+                                                                sim.hw)]
+                 for k in t_on["kernels"]]
+        graphs = [g for c in cands for g in c]
+        scores = {c.use_pallas_aggregate: autotune_zoo.learned_estimator(
+            model, c, norm, None).estimate(graphs)
+            for c in (zoo["serve_cfg"], off_cfg)}
+        _hold_scores(f"autotune_zoo {arch} learned scores", scores[True],
+                     scores[False], _groups([len(c) for c in cands]))
+    return {"segment_aggregate": launches["segment_aggregate"]}
+
+
+def check_flash_blocks() -> dict:
+    """Every bf16 flash instantiation against the plain version at the
+    EX_FLASH_CASES layers (FLASH_TOL), each timed (CUDA events; device
+    time by the profiler) beside its bound, the plain version and SDPA.
+    Returns the kernels-line numbers of each instantiation at h2o-danube-
+    3-4b's layer (the first case)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rtol, atol = FLASH_TOL["bfloat16"]
+    rows = {}
+    for label, B, S, H, KH, hd, causal, window, iters in EX_FLASH_CASES:
+        q = torch.randn((B, S, H, hd), generator=gen,
+                        device=DEVICE).bfloat16()
+        k = torch.randn((B, S, KH, hd), generator=gen,
+                        device=DEVICE).bfloat16()
+        v = torch.randn((B, S, KH, hd), generator=gen,
+                        device=DEVICE).bfloat16()
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+        ref = plain()
+        plain_ms = time_ms(plain, warmup=0, iters=1)
+        sq, sk, sv, mask = _sdpa_inputs(q, k, v, causal, window)
+
+        def library():
+            return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask)
+        lib_ms = time_ms(library, warmup=1, iters=iters)
+        del sq, sk, sv, mask
+        pairs = _attn_pairs(S, S, causal, window)
+        flops = 4 * hd * pairs * B * H
+        nbytes = 2 * 2 * hd * (B * S * H + B * S * KH)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+        for bq, bk in fa.BLOCK_SHAPES["sm90"]:
+            def run():
+                return fa.flash_attention(q, k, v, causal=causal,
+                                          window=window, block_q=bq,
+                                          block_k=bk)
+            out = run()
+            torch.cuda.synchronize()
+            ok, err, worst = _within(out, ref, rtol, atol)
+            del out
+            ms = time_ms(run, warmup=1, iters=iters)
+            dev_ms, split = device_ms(run, iters)
+            log(f"[examples] flash_attention ({bq}, {bk}) {label} B={B} "
+                f"S={S} H={H} KH={KH} hd={hd} causal={causal} "
+                f"window={window} bf16: max_abs_err={err:.3e} (worst "
+                f"{worst:.3f} of the limit) kernel {ms:.4f} ms call, "
+                f"device {dev_ms:.4f} ms [{split}], "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
+                f"({b_by}), bound / call {b_ms / ms:.1%}; plain "
+                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms")
+            if not ok:
+                raise AssertionError(f"flash_attention ({bq}, {bk}) "
+                                     f"{label}: worst {worst} of the limit")
+            if label == EX_FLASH_CASES[0][0]:
+                rows[FLASH_BLOCK_ROWS[(bq, bk)]] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms}
+        del q, k, v, ref
+    return rows
+
+
+def phase_examples(card: str) -> dict:
+    """24: the six example twins on the card at the reference scripts'
+    defaults, the aggregation kernels
+    launched from their serving paths against the kernels off, and every
+    bf16 flash instantiation. Returns {"rows": kernels-line numbers of
+    the instantiations, "launches": the examples' own launch counts}."""
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    log(f"[examples] {card}: the six twins at the reference's defaults")
+    _example("fusion_search", [])
+    # Part B times each candidate on the card: the instantiations' path
+    _reset_launches()
+    _example("autotune_tilesize", ["--device", DEVICE])
+    blocks = dict(fa.launches_sm90)
+    for shape, n in blocks.items():
+        if n == 0:
+            raise AssertionError(f"autotune_tilesize: flash block {shape} "
+                                 "never launched")
+    launches = {FLASH_BLOCK_ROWS[s]: n for s, n in blocks.items()}
+    counts = [ex_quickstart()]
+    _example("serve_lm", ["--device", DEVICE])
+    with tempfile.TemporaryDirectory() as tmp:
+        counts.append(ex_train_cost_model(tmp))
+    counts.append(ex_autotune_zoo())
+    for c in counts:
+        for name, n in c.items():
+            launches[name] = launches.get(name, 0) + n
+    log(f"[examples] launches of the examples' paths: {launches}")
+    log(f"[time] examples twins done in {time.perf_counter() - t0:.1f} s")
+    rows = check_flash_blocks()
+    log(f"[time] examples phase done in {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4099,11 +4395,21 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 23")
     phase_roofline(card, lm_train)
 
-    # each path's own count: the serving runs of 4-5, then 12-15
+    # 24: the six examples, the flash kernel's block shapes
+    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 24")
+    examples = phase_examples(card)
+    rows.update((name, dict(r, launches=0))
+                for name, r in examples["rows"].items()
+                if name != "flash_attention")
+    for name in FLASH_BLOCK_ROWS.values():      # Part B's timed candidates
+        rows[name]["launches"] += examples["launches"][name]
+
+    # each path's own count: the serving runs of 4-5, then 12-15, 21, 24
     for name, main_run in (("graph_aggregate", dense),
                            ("segment_aggregate", sparse),
                            ("segment_aggregate_i8", q_sparse)):
         rows[name]["launches"] = (main_run["launches"][name]
+                                  + examples["launches"].get(name, 0)
                                   + autotune[name] + gat_lstm[name]
                                   + flywheel.get(name, 0)
                                   + ddp.get(name, 0)
@@ -4117,6 +4423,12 @@ def main() -> int:
             ("segment_aggregate_i8", "segment_aggregate",
              "src/repro/kernels/segment_aggregate/kernel.py:89"),
             ("flash_attention", "flash_attention_sm90",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("flash_attention_128x64", "flash_attention_sm90",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("flash_attention_64x128", "flash_attention_sm90",
+             "src/repro/kernels/flash_attention/kernel.py:79"),
+            ("flash_attention_64x64", "flash_attention_sm90",
              "src/repro/kernels/flash_attention/kernel.py:79"),
             ("flash_attention_f32", "flash_attention_tf32",
              "src/repro/kernels/flash_attention/kernel.py:79"),

@@ -10,5 +10,6 @@ reference, each beside its plain PyTorch version:
 
 Sources build with nvcc at first CUDA use (`build.py`) into
 `kernels/build/`. Wrappers launch the kernel for CUDA tensors and run the
-plain version for CPU tensors.
+plain version for CPU tensors. Each module's `block_candidates` lists
+the tiles its kernel is built at, for the tile-size autotuner.
 """

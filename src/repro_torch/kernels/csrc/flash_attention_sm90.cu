@@ -57,7 +57,8 @@
 // products of its own warpgroup (the other warpgroup's products run
 // meanwhile).
 //
-// Design: one block per (query tile of 128 rows, head, batch); 288
+// Design (at the default block shape, kBQ = kBK = 128; the others
+// below): one block per (query tile of 128 rows, head, batch); 288
 // threads: warps 0-7 are two consumer warpgroups of 64 query rows each,
 // warp 8 the producer, whose lane 0 issues every TMA load. Q is loaded
 // once; K and V go through a ring of kStages stages, one "full" mbarrier
@@ -68,11 +69,12 @@
 // and add nothing to q . k, rows past Sq or Sk arrive as zeros. For
 // hd <= 64 the second box is not loaded and its shared memory is zeroed
 // once. Per key tile of kBK = 128 keys, each consumer warpgroup:
-//   S = Q K^T      8 x wgmma m64n128k16, Q and K K-major from shared memory
+//   S = Q K^T      8 x wgmma m64n128k16 (m64n64k16 at kBK = 64), Q and K
+//                  K-major from shared memory
 //   mask, online softmax in f32 in the log2 domain (exp2), O *= alpha;
 //                  only tiles that cross Sk, the diagonal or the window's
 //                  lower edge pay for the position compare
-//   O_t = P_hi V + P_lo V  per 64-column half of hd: 16 x wgmma
+//   O_t = P_hi V + P_lo V  per 64-column half of hd: 2 kBK / 16 x wgmma
 //                  m64n64k16 from zero, P from registers (the S
 //                  accumulator fragment is the A fragment of each k16
 //                  slice), V MN-major (wgmma's transpose bit for B); then
@@ -82,34 +84,66 @@
 // wrapper checks that each row does. Epilogue: O / max(l, 1e-30) ->
 // bf16, stored at rows < Sq and columns < hd.
 //
-// Built with: kBQ = 128 query rows (2 x 64), kBK = 128 keys, hd padded to
-// 128, kStages = 2: 32 KB of Q + 2 x (32 KB K + 32 KB V) = 160 KB of
+// Block shapes. The kernel is a template over (kBQ, kBK), the query rows
+// of a block and the keys of a tile, as the TPU kernel takes (block_q,
+// block_k) for its tile-size autotuner; the wrapper's
+// `block_candidates` lists the instantiations and the entry point
+// launches the one asked for. kBQ = 128 is two consumer warpgroups (288
+// threads), kBQ = 64 one (160 threads); kBK = 128 is Q.K^T by m64n128k16
+// (64 score registers a thread) and a P.V 128 keys deep, kBK = 64 by
+// m64n64k16 (32) and 64 deep. The TMA boxes are kBQ and kBK rows, the
+// ring kStages = 2 stages of one K and one V tile, one full and one empty
+// mbarrier a stage (the empty one counts kBQ / 16 consumer warps):
+//
+//     (kBQ, kBK)   shared memory (+1 KB)      blocks an SM by smem
+//     (128, 128)   32 + 2 x 64 = 160 KB        1
+//     (128, 64)    32 + 2 x 32 =  96 KB        1 (288 threads at 168 regs)
+//     (64, 128)    16 + 2 x 64 = 144 KB        1
+//     (64, 64)     16 + 2 x 32 =  80 KB        2 (launch bounds ask for 2)
+//
+// all four within the 227 KB (232,448 bytes) a block may take, so all
+// four ship. The (128, 128) instantiation is the kernel as it was before
+// the template: kBQ = 128 query rows (2 x 64), kBK = 128 keys, hd padded
+// to 128, kStages = 2: 32 KB of Q + 2 x (32 KB K + 32 KB V) = 160 KB of
 // dynamic shared memory (+ 1 KB for 1024-byte alignment and barriers),
 // one block per SM (4096 blocks at the layer shape), 168 registers a
 // thread, the most a 9-warp block gets (three warps share an SM
 // quarter's 16 K registers), with 160 bytes of spill stores since the
 // per-tile O_t (`-Xptxas -v`, CUDA 12.8): 3-5 % slower than the kernel
 // that carried O across the row, a 128-column O_t 16 % (H100 80GB HBM3,
-// 700 W, the layer shapes of chip_smoke.py).
+// 700 W, the layer shapes of chip_smoke.py). The other shapes are right,
+// not tuned: chip_smoke.py's [examples] phase times each beside the
+// plain version and SDPA (PERF.md).
 //
 // The PTX helpers and the tensor-map encoder are wgmma_bf16.cuh's.
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int kBQ = 128;                  // query rows per block
-constexpr int kBK = 128;                  // keys per tile
-constexpr int kStages = 2;
-constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 32 * (kConsumerWarps + 1);
-constexpr int kChunkBytes = 128 * kBoxCols * 2;       // 128 rows x 128 B
-constexpr int kQBytes = 2 * kChunkBytes;              // Q: two column boxes
-constexpr int kKVBytes = 2 * kChunkBytes;             // one K or V tile
-constexpr size_t kSmemBytes =
-    1024 + kQBytes + kStages * 2 * kKVBytes + 64 * sizeof(uint64_t);
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kBQ == 128 && kBK == 128, "boxes of 128 rows");
+constexpr int kSmemPerSm = 233472;        // 228 KB an SM, 1 KB of it a block's
+
+// the sizes of the (BQ, BK) instantiation
+template <int BQ, int BK>
+struct Tile {
+  static_assert((BQ == 64 || BQ == 128) && (BK == 64 || BK == 128),
+                "block shapes of 64 or 128 rows");
+  static constexpr int kStages = 2;
+  static constexpr int kConsumerWarps = BQ / 16;      // BQ / 64 warpgroups
+  static constexpr int kThreads = 32 * (kConsumerWarps + 1);
+  static constexpr int kQChunk = BQ * kBoxCols * 2;   // BQ rows x 128 B
+  static constexpr int kKVChunk = BK * kBoxCols * 2;  // BK rows x 128 B
+  static constexpr int kQBytes = 2 * kQChunk;         // Q: two column boxes
+  static constexpr int kKVBytes = 2 * kKVChunk;       // one K or V tile
+  static constexpr size_t kSmemBytes =
+      1024 + kQBytes + kStages * 2 * kKVBytes + 64 * sizeof(uint64_t);
+  static_assert(kSmemBytes <= 232448, "a block takes at most 227 KB");
+  static constexpr int kMinBlocks =
+      BQ == 64 && 2 * (kSmemBytes + 1024) <= kSmemPerSm ? 2 : 1;
+  static constexpr int kScores = BK / 2;      // S registers a thread
+  static constexpr int kSlices = BK / 16;     // k16 slices of a key tile
+};
 
 #define WG_D64                                                          \
   WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),       \
@@ -132,22 +166,41 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64x64] (+)= A[64x16] B[16x64]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 struct Shape {
   int Sq, Sk, hd, kv_group, causal, window, q_offset;
   float scale_log2;              // scale * log2(e)
   int64_t osb, oss, osh;         // out strides (elements)
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int BQ, int BK>
+__global__ void __launch_bounds__(Tile<BQ, BK>::kThreads,
+                                  Tile<BQ, BK>::kMinBlocks)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             __nv_bfloat16* __restrict__ out,
                             const Shape sh) {
+  using T = Tile<BQ, BK>;
+  constexpr int kBQ = BQ, kBK = BK, kStages = T::kStages;
+  constexpr int kConsumerWarps = T::kConsumerWarps;
+  constexpr int kThreads = T::kThreads;
+  constexpr int kQChunk = T::kQChunk, kKVChunk = T::kKVChunk;
+  constexpr int kQBytes = T::kQBytes, kKVBytes = T::kKVBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* q_s = smem;                             // [2 boxes][128][64]
+  uint8_t* q_s = smem;                             // [2 boxes][kBQ][64]
   uint8_t* kv_s = q_s + kQBytes;                   // [stage][K, V]
   uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + kStages * 2 * kKVBytes);
   const uint32_t q_bar = smem_addr(bars);
@@ -180,9 +233,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   if (boxes == 1) {           // the second column box is never loaded
     for (int s = -1; s < 2 * kStages; ++s) {
+      const int chunk = s < 0 ? kQChunk : kKVChunk;
       uint4* p = reinterpret_cast<uint4*>(
-          (s < 0 ? q_s : kv_s + s * kKVBytes) + kChunkBytes);
-      for (int e = tid; e < kChunkBytes / 16; e += kThreads)
+          (s < 0 ? q_s : kv_s + s * kKVBytes) + chunk);
+      for (int e = tid; e < chunk / 16; e += kThreads)
         p[e] = make_uint4(0, 0, 0, 0);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -192,22 +246,22 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (tid >= 32 * kConsumerWarps) {
     // ---------------------------------------------------------- producer
     if (tid != 32 * kConsumerWarps) return;
-    mbar_expect_tx(q_bar, boxes * kChunkBytes);
+    mbar_expect_tx(q_bar, boxes * kQChunk);
     for (int c = 0; c < boxes; ++c)
-      tma_load(smem_addr(q_s + c * kChunkBytes), &tm_q, q_bar,
+      tma_load(smem_addr(q_s + c * kQChunk), &tm_q, q_bar,
                c * kBoxCols, h, q0, b);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       const int k0 = (t_begin + i) * kBK;
       mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
       const uint32_t full = full0 + 8 * s;
-      mbar_expect_tx(full, 2 * boxes * kChunkBytes);
+      mbar_expect_tx(full, 2 * boxes * kKVChunk);
       uint8_t* k_s = kv_s + s * 2 * kKVBytes;
       uint8_t* v_s = k_s + kKVBytes;
       for (int c = 0; c < boxes; ++c) {
-        tma_load(smem_addr(k_s + c * kChunkBytes), &tm_k, full,
+        tma_load(smem_addr(k_s + c * kKVChunk), &tm_k, full,
                  c * kBoxCols, kh, k0, b);
-        tma_load(smem_addr(v_s + c * kChunkBytes), &tm_v, full,
+        tma_load(smem_addr(v_s + c * kKVChunk), &tm_v, full,
                  c * kBoxCols, kh, k0, b);
       }
     }
@@ -224,9 +278,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg_qlo = sh.q_offset + q0 + 64 * wg;
   const int wg_qhi = wg_qlo + 63;
 
-  float o[64], s[64];
+  float o[64], s[T::kScores];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::kScores; ++i) s[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   const uint32_t q_wg = smem_addr(q_s) + 64 * wg * 128;
@@ -247,9 +303,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
-        wgmma_ss(s, desc(q_wg + off, 16, 1024), desc(k_s + off, 16, 1024),
-                 kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss(s, desc(q_wg + (kk / 4) * kQChunk + col, 16, 1024),
+                 desc(k_s + (kk / 4) * kKVChunk + col, 16, 1024), kk > 0);
       }
       wg_commit();
       wg_wait0();
@@ -260,7 +316,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         (sh.window > 0 && wg_qhi - k0 >= sh.window);
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[4 * j + e] * sh.scale_log2;
@@ -286,7 +342,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       m1 = mn1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
         s[4 * j] = exp2f(s[4 * j] - mn0);
         s[4 * j + 1] = exp2f(s[4 * j + 1] - mn0);
         s[4 * j + 2] = exp2f(s[4 * j + 2] - mn1);
@@ -298,16 +354,16 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       l1 = l1 * a1 + sum1;
 
       // P split into bf16 halves, in the A-fragment layout of each k16
-      uint32_t p_hi[8][4], p_lo[8][4];
+      uint32_t p_hi[T::kSlices][4], p_lo[T::kSlices][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < T::kSlices; ++kk)
 #pragma unroll
         for (int f = 0; f < 4; ++f)
           split2(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1], p_hi[kk][f],
                  p_lo[kk][f]);
 
       // per 64-column half c of hd (V's column box c): O_t = P_hi V +
-      // P_lo V over 8 k16 slices of 16 keys, from zero; then O = O *
+      // P_lo V over kBK / 16 k16 slices of 16 keys, from zero; then O = O *
       // alpha + O_t in f32 (O's fragment: columns 64 c + 8 j + ...)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
@@ -315,9 +371,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(t);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < T::kSlices; ++kk) {
           const uint64_t dv =
-              desc(v_s + c * kChunkBytes + kk * 16 * 128, kChunkBytes, 1024);
+              desc(v_s + c * kKVChunk + kk * 16 * 128, kKVChunk, 1024);
           wgmma_rs_t(t, p_hi[kk], dv, kk > 0);
           wgmma_rs_t(t, p_lo[kk], dv, 1);
         }
@@ -361,20 +417,21 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 constexpr int kMaxDevices = 64;           // host settings cached per device
+constexpr int kErrBlockShape = 30000;     // no instantiation of (block_q, block_k)
 
-}  // namespace
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  int B, Sq, Sk, H, KH, hd;
+  int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
+  int causal, window, q_offset;
+  float scale;
+  cudaStream_t stream;
+};
 
-// q [B,Sq,H,hd], k/v [B,Sk,KH,hd], out [B,Sq,H,hd], bf16 on the device,
-// each given by its batch, sequence and head strides in elements (the
-// head-dim axis contiguous; the wrapper checks TMA's alignment rules).
-// hd <= 128; window 0 = none. Launch on `stream`; return 0, a CUDA error,
-// 10000 (no tensor-map encoder) or 20000 + the encoder's CUresult.
-extern "C" int flash_attention_sm90(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
-    int Sk, int H, int KH, int hd, int64_t qsb, int64_t qss, int64_t qsh,
-    int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-    int64_t vsh, int64_t osb, int64_t oss, int64_t osh, int causal,
-    int window, int q_offset, float scale, void* stream) {
+template <int BQ, int BK>
+int launch(const Args& a) {
+  using T = Tile<BQ, BK>;
   // the attribute applies to the current device only: set once per device
   static bool configured[kMaxDevices] = {};
   int dev = 0;
@@ -382,23 +439,55 @@ extern "C" int flash_attention_sm90(
                       dev < kMaxDevices;
   if (!cached || !configured[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_sm90_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        flash_attention_sm90_kernel<BQ, BK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     if (cached) configured[dev] = true;
   }
   const EncodeTiled fn = encode_tiled();
   if (!fn) return kErrEntryPoint;
   CUtensorMap tq, tk, tv;
-  int err = encode(fn, &tq, q, B, Sq, H, hd, qsb, qss, qsh, kBQ);
-  if (!err) err = encode(fn, &tk, k, B, Sk, KH, hd, ksb, kss, ksh, kBK);
-  if (!err) err = encode(fn, &tv, v, B, Sk, KH, hd, vsb, vss, vsh, kBK);
+  int err = encode(fn, &tq, a.q, a.B, a.Sq, a.H, a.hd, a.qsb, a.qss, a.qsh,
+                   BQ);
+  if (!err)
+    err = encode(fn, &tk, a.k, a.B, a.Sk, a.KH, a.hd, a.ksb, a.kss, a.ksh,
+                 BK);
+  if (!err)
+    err = encode(fn, &tv, a.v, a.B, a.Sk, a.KH, a.hd, a.vsb, a.vss, a.vsh,
+                 BK);
   if (err) return err;
-  const Shape sh{Sq, Sk, hd, H / KH, causal, window, q_offset,
-                 scale * kLog2e, osb, oss, osh};
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_sm90_kernel<<<grid, kThreads, kSmemBytes,
-                                (cudaStream_t)stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sh);
+  const Shape sh{a.Sq, a.Sk, a.hd, a.H / a.KH, a.causal, a.window,
+                 a.q_offset, a.scale * kLog2e, a.osb, a.oss, a.osh};
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+  flash_attention_sm90_kernel<BQ, BK>
+      <<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), sh);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B,Sq,H,hd], k/v [B,Sk,KH,hd], out [B,Sq,H,hd], bf16 on the device,
+// each given by its batch, sequence and head strides in elements (the
+// head-dim axis contiguous; the wrapper checks TMA's alignment rules).
+// hd <= 128; window 0 = none; (block_q, block_k) one of (128, 128),
+// (128, 64), (64, 128), (64, 64). Launch on `stream`; return 0, a CUDA
+// error, 10000 (no tensor-map encoder), 20000 + the encoder's CUresult
+// or 30000 (no such block shape).
+extern "C" int flash_attention_sm90(
+    const void* q, const void* k, const void* v, void* out, int B, int Sq,
+    int Sk, int H, int KH, int hd, int64_t qsb, int64_t qss, int64_t qsh,
+    int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
+    int64_t vsh, int64_t osb, int64_t oss, int64_t osh, int causal,
+    int window, int q_offset, int block_q, int block_k, float scale,
+    void* stream) {
+  const Args a{q,   k,   v,   out, B,   Sq,  Sk,  H,      KH,       hd,
+               qsb, qss, qsh, ksb, kss, ksh, vsb, vss,    vsh,      osb,
+               oss, osh, causal, window, q_offset, scale,
+               (cudaStream_t)stream};
+  if (block_q == 128 && block_k == 128) return launch<128, 128>(a);
+  if (block_q == 128 && block_k == 64) return launch<128, 64>(a);
+  if (block_q == 64 && block_k == 128) return launch<64, 128>(a);
+  if (block_q == 64 && block_k == 64) return launch<64, 64>(a);
+  return kErrBlockShape;
 }

@@ -18,7 +18,12 @@ CUDA tensors the split-TF32 tensor-core kernel
 `csrc/flash_attention_hd256.cu` (wgmma with TMA; `launches_hd256`) and
 f32 the split-TF32 kernel `csrc/flash_attention_hd256_tf32.cu` (wgmma,
 bulk copies; `launches_hd256_f32`); hd > 256 raises (the reference takes
-any hd; no arch of the zoo goes past 256). Each kernel launches on its
+any hd; no arch of the zoo goes past 256). The bf16 hd <= 128 kernel is
+built at four (block_q, block_k) shapes, (128, 128) by default; each
+other route at one (`BLOCK_SHAPES`); `block_candidates` lists a route's
+shapes for the tile-size autotuner, as the reference's `ops` module
+lists the TPU kernel's, and a shape the route is not built at raises on
+either device. Each kernel launches on its
 tensors' device; CPU tensors run the plain PyTorch version
 `flash_attention_plain` at any hd; any other device raises, and a failed
 build or launch raises. `launches` counts every kernel launch (an f32
@@ -48,6 +53,11 @@ launches_tc = 0             # bf16: csrc/flash_attention_sm90.cu
 launches_f32 = 0            # f32: csrc/flash_attention_tf32.cu
 launches_hd256 = 0          # bf16, hd > 128: csrc/flash_attention_hd256.cu
 launches_hd256_f32 = 0      # f32, hd > 128: csrc/flash_attention_hd256_tf32.cu
+# (block_q, block_k) each route's kernel is built at, the default first
+BLOCK_SHAPES = {"sm90": ((128, 128), (128, 64), (64, 128), (64, 64)),
+                "tf32": ((64, 64),), "hd256": ((128, 64),),
+                "hd256_f32": ((64, 32),)}
+launches_sm90 = dict.fromkeys(BLOCK_SHAPES["sm90"], 0)  # by block shape
 NEG_INF = -1e30
 TC_HEAD_DIM = 128           # the sm90 and tf32 kernels' tiles hold hd <= 128
 MAX_HEAD_DIM = 256          # the hd256 kernels' tiles hold hd <= 256
@@ -118,8 +128,10 @@ def _bind(lib, route: str):
     fn = getattr(lib, ROUTES[route][1])
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     split = route in SCRATCH_ROUTES
+    # causal, window, q_offset (and the bf16 route's block_q, block_k)
+    flags = 5 if route == "sm90" else 3
     fn.argtypes = ([p] * (5 if split else 4) + [i] * 6 + [i64] * 12
-                   + [i] * 3 + [ctypes.c_float, p])
+                   + [i] * flags + [ctypes.c_float, p])
     fn.restype = i
     if not split:
         return fn, None
@@ -146,6 +158,38 @@ def route_for(dtype: torch.dtype, hd: int) -> str:
     return "hd256" if dtype == torch.bfloat16 else "hd256_f32"
 
 
+def block_candidates(seq_q: int, seq_k: int, *,
+                     dtype: torch.dtype = torch.bfloat16,
+                     hd: int = 128) -> list[tuple[int, int]]:
+    """(block_q, block_k) candidates for the tile-size autotuner: the
+    shapes the kernel of (`dtype`, `hd`) is built at (`route_for`), in
+    the reference's order (block_q, then block_k, ascending), without
+    blocks longer than the sequence, as the reference's
+    `block_candidates` (the smallest stays). The TPU kernel takes any
+    block of its (64..512) x (128..1024) list; these are Hopper's: a
+    consumer warpgroup holds 64 query rows, and 227 KB of shared memory
+    holds two stages of K and V at 128 keys (csrc/flash_attention_sm90.cu)."""
+    shapes = sorted(BLOCK_SHAPES[route_for(dtype, hd)])
+    q_min = min(bq for bq, _ in shapes)
+    k_min = min(bk for _, bk in shapes)
+    return [(bq, bk) for bq, bk in shapes
+            if bq <= max(seq_q, q_min) and bk <= max(seq_k, k_min)]
+
+
+def _block_shape(route: str, block_q: int | None,
+                 block_k: int | None) -> tuple[int, int]:
+    """The (block_q, block_k) of a call on `route`: None keeps the
+    route's default; a shape it is not built at raises, naming them."""
+    shapes = BLOCK_SHAPES[route]
+    shape = (shapes[0][0] if block_q is None else block_q,
+             shapes[0][1] if block_k is None else block_k)
+    if shape not in shapes:
+        raise ValueError(f"flash_attention: (block_q, block_k) = {shape} "
+                         f"is not a shape the {route} kernel is built at: "
+                         f"{sorted(shapes)}")
+    return shape
+
+
 def _check_tma(q, k, v) -> None:
     """The bf16 kernels read q, k, v with TMA, which needs 16-byte
     aligned base pointers and strides that are multiples of 16 bytes,
@@ -167,16 +211,23 @@ def _check_tma(q, k, v) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KH,hd] (model layout, read through
     their strides; the last axis must be contiguous). f32 or bf16, all
     three alike; hd <= 256 (in bf16 a multiple of 8, and pointers and
     strides as TMA takes them: `_check_tma`); `q_offset` a Python int
-    >= 0. The kernel launches on the tensors' device. Returns [B,Sq,H,hd]
-    in q's dtype."""
+    >= 0. (`block_q`, `block_k`): one of the route's `BLOCK_SHAPES`, None
+    its default; checked on the CPU too, where the plain version ignores
+    it (the output does not depend on it, as the TPU kernel's does not).
+    The kernel launches on the tensors' device. Returns [B,Sq,H,hd] in
+    q's dtype."""
     B, Sq, Sk, H, KH, hd = _check_shapes(q, k, v)
     build.check_no_grad("flash_attention", "use_pallas_attn", q=q, k=k,
                         v=v)
+    # a shape outside the route's is refused on the CPU too
+    if block_q is not None or block_k is not None:
+        _block_shape(route_for(q.dtype, hd), block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -217,6 +268,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * Sq * H == 0:
         return out
     route = route_for(q.dtype, hd)
+    block = _block_shape(route, block_q, block_k)
     fn, scratch_bytes = _kernel(route)
     # f32: the kernel's K and V^T hi/lo tiles, written by its pre-pass
     scratch = None if scratch_bytes is None else torch.empty(
@@ -227,9 +279,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  B, Sq, Sk, H, KH, hd, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                  int(causal), 0 if window is None else int(window),
-                 q_offset, 1.0 / math.sqrt(hd),
+                 q_offset, *(block if route == "sm90" else ()),
+                 1.0 / math.sqrt(hd),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:         # a CUDA error; bf16 also 10000 (no tensor-map encoder)
+        # (30000, no such block shape, cannot come: _block_shape checks)
         raise RuntimeError(f"flash_attention launch failed: error {err}"
                            + (" (20000 + the CUresult of "
                               "cuTensorMapEncodeTiled)" if err >= 20000
@@ -239,6 +293,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches += 1
     if route == "sm90":
         launches_tc += 1
+        launches_sm90[block] += 1
     elif route == "tf32":
         launches_f32 += 1
     elif route == "hd256":

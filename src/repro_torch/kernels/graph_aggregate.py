@@ -107,3 +107,15 @@ def graph_aggregate(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     global launches
     launches += 1
     return out
+
+
+F_TILE = 64         # output channels a block owns (csrc/graph_aggregate.cu)
+
+
+def block_candidates(hidden: int) -> list[int]:
+    """block_f candidates for the tile-size autotuner: the one F-tile the
+    Hopper kernel is built at, 64 channels a block of two warpgroups
+    (csrc/graph_aggregate.cu), for any `hidden`: wider layers take more
+    blocks, not wider ones. The reference's TPU kernel takes block_f of
+    64..1024 up to the width (its `ops.block_candidates`)."""
+    return [F_TILE]

@@ -200,3 +200,13 @@ def _launch(x, w, w_scale, edges, node_mask, act, mean,
     else:
         launches += 1
     return out
+
+
+def block_candidates(edge_capacity: int) -> list[int]:
+    """block_e candidates for the tile-size autotuner. The reference's TPU
+    kernel walks the packed edges in blocks of block_e (64..1024, its
+    `ops.block_candidates`), each a one-hot matmul; this kernel walks
+    each destination's row of a CSR (`edge_csr`) and has no edge block
+    (csrc/segment_aggregate.cu). Its one candidate is the whole edge
+    capacity, taken in one pass."""
+    return [edge_capacity]

@@ -92,3 +92,16 @@ def ssd_scan(S: torch.Tensor, d: torch.Tensor):
     global launches
     launches += 1
     return h_before, h_final
+
+
+def block_candidates(d_state: int, head_dim: int) -> list[tuple[int, int]]:
+    """(N, P) tile candidates for the tile-size autotuner: the whole
+    (N, P) state face, as the reference's; candidates vary the chunk
+    length upstream instead (`chunk_candidates`)."""
+    return [(d_state, head_dim)]
+
+
+def chunk_candidates(seq: int) -> list[int]:
+    """SSD chunk-length candidates for the tile-size autotuner (the
+    reference's list)."""
+    return [c for c in (64, 128, 256, 512) if c <= seq and seq % c == 0]

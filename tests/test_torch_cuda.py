@@ -377,6 +377,33 @@ def test_flash_attention_cuda_kernel_matches_plain(case, dtype):
                                atol=atol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(128, 128), (128, 64), (64, 128),
+                                   (64, 64)], ids=str)
+@pytest.mark.parametrize("case", FLASH_CUDA_CASES, ids=str)
+def test_flash_attention_bf16_block_shapes_match_plain(case, block):
+    """Each (block_q, block_k) instantiation of the bf16 kernel
+    (csrc/flash_attention_sm90.cu) against the plain version, held as
+    the default shape is (2^-6·|ref| + 1e-5 per element); one launch,
+    counted under its block shape."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    causal, window, q_offset = case[6:]
+    q, k, v = _flash_cuda_inputs(case, torch.bfloat16, seed=case[5] + 3)
+    before = fa.launches_tc, dict(fa.launches_sm90)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, block_q=block[0],
+                             block_k=block[1])
+    want = dict(before[1])
+    want[block] += 1
+    assert fa.launches_tc == before[0] + 1 and fa.launches_sm90 == want
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    worst = float(((out.float() - ref.float()).abs()
+                   / (2.0 ** -6 * ref.float().abs() + 1e-5)).max())
+    assert worst <= 1.0, worst
+
+
 # the f32 kernel held element by element as chip_smoke.py holds it:
 # |out - ref| <= 2e-5·|ref| + 5e-6 against the plain version in float64
 # (`exact`: on the card the f32 plain version's own products land up to

@@ -75,6 +75,9 @@ print(json.dumps({{"mods": mods, "bad": bad}}))
             "repro_torch.launch.serve"} <= set(out["mods"])
     assert sum(m.startswith("repro_torch.configs.")
                for m in out["mods"]) == 10
+    assert {f"repro_torch.examples.{n}" for n in (
+        "fusion_search", "autotune_tilesize", "quickstart", "serve_lm",
+        "train_cost_model", "autotune_zoo")} <= set(out["mods"])
     assert out["bad"] == []
 
 

@@ -19,10 +19,13 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.kernels.flash_attention.ops import flash_attention as jflash
+from repro.kernels.ssd_scan import ops as jssd_ops
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.ssd_scan.ops import ssd_scan as jssd
 from repro.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import graph_aggregate as ga
+from repro_torch.kernels import segment_aggregate as sa
 from repro_torch.kernels import ssd_scan as ss
 
 # (B, Sq, Sk, H, KH, hd, causal, window, q_offset, dtype): the six
@@ -451,3 +454,96 @@ def test_ssd_scan_first_chunk_state_is_zero():
 def test_ssd_scan_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="expected"):
         ss.ssd_scan(torch.zeros((1, 3, 2, 4, 4)), torch.zeros((1, 3, 1)))
+
+
+# ------------------------------------------------ block shapes (autotuner)
+# (B, S, H, KH, hd, window, dtype, (block_q, block_k)): each shape a
+# route's kernel is built at, its Pallas twin run at the same blocks
+BLOCK_CASES = [
+    (1, 160, 4, 2, 120, 40, "bfloat16", bk) for bk in
+    ((128, 128), (128, 64), (64, 128), (64, 64))] + [
+    (2, 96, 4, 2, 64, None, "float32", (64, 64)),
+    (1, 80, 2, 1, 256, 48, "bfloat16", (128, 64)),
+    (1, 80, 2, 1, 256, None, "float32", (64, 32))]
+
+
+def test_flash_block_candidates_per_route():
+    """bf16 hd <= 128 lists the four instantiations in the reference's
+    order, the other routes their one shape; blocks longer than the
+    sequence drop out as in the reference (the smallest stays)."""
+    every = [(64, 64), (64, 128), (128, 64), (128, 128)]
+    assert fa.block_candidates(4096, 4096) == every
+    assert fa.block_candidates(128, 128, hd=64) == every
+    assert fa.block_candidates(100, 4096) == [(64, 64), (64, 128)]
+    assert fa.block_candidates(4096, 100) == [(64, 64), (128, 64)]
+    assert fa.block_candidates(8, 8) == [(64, 64)]
+    assert fa.block_candidates(4096, 4096, dtype=torch.float32) == [(64, 64)]
+    assert fa.block_candidates(4096, 4096, hd=256) == [(128, 64)]
+    assert fa.block_candidates(4096, 4096, dtype=torch.float32,
+                               hd=256) == [(64, 32)]
+    assert fa.block_candidates(16, 16, hd=256) == [(128, 64)]
+    for route, shapes in fa.BLOCK_SHAPES.items():
+        assert len(set(shapes)) == len(shapes) and route in fa.ROUTES
+
+
+@pytest.mark.parametrize("dtype,hd,block", [
+    ("bfloat16", 128, (256, 128)), ("bfloat16", 64, (128, 256)),
+    ("bfloat16", 120, (512, 512)), ("float32", 64, (128, 128)),
+    ("bfloat16", 256, (128, 128)), ("float32", 256, (64, 64))])
+def test_flash_refuses_block_shape_outside_the_route(dtype, hd, block):
+    """On the CPU too, before the plain version: a shape the route's
+    kernel is not built at raises a ValueError that names them."""
+    q = torch.zeros((1, 8, 2, hd), dtype=getattr(torch, dtype))
+    with pytest.raises(ValueError, match="is not a shape") as e:
+        fa.flash_attention(q, q, q, block_q=block[0], block_k=block[1])
+    route = fa.route_for(q.dtype, hd)
+    assert str(sorted(fa.BLOCK_SHAPES[route])) in str(e.value)
+
+
+def test_flash_block_shape_defaults_and_halves():
+    """None keeps the route's default; one side given takes the default
+    of the other; the plain version's output does not depend on it."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _flash_inputs(
+        1, 70, 70, 4, 2, 64, "bfloat16", seed=5))
+    want = fa.flash_attention(q, k, v, causal=True)
+    for bq, bk in ((64, None), (None, 64), (128, 128), (64, 64)):
+        assert torch.equal(fa.flash_attention(q, k, v, causal=True,
+                                              block_q=bq, block_k=bk), want)
+    with pytest.raises(ValueError, match="is not a shape"):
+        fa.flash_attention(q, k, v, block_q=32)
+    assert fa._block_shape("sm90", None, None) == (128, 128)
+    assert fa._block_shape("sm90", 64, None) == (64, 128)
+    assert fa._block_shape("tf32", None, None) == (64, 64)
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=str)
+def test_flash_block_shapes_match_pallas(case):
+    """The port at each of its candidates against the Pallas kernel
+    (interpret mode) run at the same (block_q, block_k), causal; as
+    above, 2e-2 in bf16 and 2e-5 in f32."""
+    B, S, H, KH, hd, window, dtype, (bq, bk) = case
+    q, k, v = _flash_inputs(B, S, S, H, KH, hd, dtype, seed=S + hd)
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
+    pallas = jflash(jq, jk, jv, causal=True, window=window, block_q=bq,
+                    block_k=bk, interpret=True)
+    tq, tk, tv = (_torch(a, dtype) for a in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, causal=True, window=window,
+                             block_q=bq, block_k=bk)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_kernel_candidate_hooks():
+    """graph_aggregate: the Hopper kernel's one 64-channel F-tile at any
+    width; segment_aggregate: no edge block, the whole capacity; ssd_scan:
+    the reference's lists."""
+    for hidden in (16, 48, 192, 1024):
+        assert ga.block_candidates(hidden) == [64]
+    for cap in (64, 200, 4096):
+        assert sa.block_candidates(cap) == [cap]
+    for dims in ((128, 64), (16, 8)):
+        assert ss.block_candidates(*dims) == jssd_ops.block_candidates(*dims)
+    for seq in (64, 100, 256, 768, 2048, 8192):
+        assert ss.chunk_candidates(seq) == jssd_ops.chunk_candidates(seq)
