@@ -138,12 +138,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
              static plan > 0, the delta chain byte-identical to a
              rebuild, warm start within 0.5 of scratch's steps; MC mean
              and std with the kernels on vs off within 1e-4·max|pred|,
-             dense and sparse (segment_aggregate); a fine-tune with the
-             input pipeline on (depth 2, device copies on a side
+             dense and sparse (segment_aggregate); a 40-step fine-tune
+             with the input pipeline on (depth 2, device copies on a side
              stream) bit-identical to it off, step for step, then timed
              and profiled both ways; `train cost-model --from-store
-             --deltas --warm-start` and `launch.flywheel` twice (the
-             second appends to the delta chain), each in its own process.
+             --deltas --warm-start` and, beside it, `launch.flywheel`
+             twice (the second appends to the delta chain), each in its
+             own process, all beside the warm-start gate.
 15. ddp    — data-parallel training of the cost model on [train]'s
              corpus and width (dense, dropout 0.1, 50 steps a run):
              dp=0 against dp=1 (an NCCL group of one rank), bit-identical
@@ -184,8 +185,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
              on 511 frame embeddings + decode of a token against the
              forward over the same frames and that token's embedding, then
              greedy steps. llava-next-34b at full width (d 7168, 56 heads
-             over 8 at hd 128) and the deepest of 60, 52, 48, 45, 40, 32
-             layers that fits (the cut printed): `loss_fn` over 1152 patch
+             over 8 at hd 128) and 30 of its 60 layers (45 fit beside the
+             forward; the script's time limit cuts the rest, as printed):
+             `loss_fn` over 1152 patch
              positions + 7040 tokens a sequence, flash vs chunked; prefill
              with the patches + decode of the last token against the
              chunked forward's last position.
@@ -215,7 +217,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 22. lm-mla — deepseek-v3-671b (MLA, absorbed decode) at full width,
              its depth cut (see `phase_lm_mla`).
 23. roofline — the dry-run lowering (`launch.lowering`, meta tensors,
-             no card) checked against the card: 16's AdamW train cell
+             no card; both processes start after 16 and run beside
+             17-22) checked against the card: 16's AdamW train cell
              (its depth, 4 x 2048 tokens, microbatch 2) lowered on a 1x1
              mesh in a process of its own: counted FLOPs, model FLOPs
              and their ratio, the H100 compute and memory terms, the
@@ -224,9 +227,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
              term exceeds the step or the arguments exceed the peak);
              beside it, in a second process, `python -m
              repro_torch.launch.dryrun --arch deepseek-v3-671b --shape
-             train_4k --mesh single --workers 7` on a fake 256-rank
+             train_4k --mesh single --workers 4` on a fake 256-rank
              16x16 mesh (its cost and peak from the probes, lowered in
-             seven processes): per-device params and
+             four processes): per-device params and
              optimizer bytes, whether they and the peak estimate fit
              80 GB and the card's own memory, the ops the lowering ran
              replicated and their share of the collective bytes, and
@@ -234,7 +237,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
              replicated-op bytes.
 24. examples — the six example twins (`repro_torch.examples`, the
              reference scripts of examples/) through their `main()` at
-             the reference's defaults: fusion_search;
+             the reference's defaults (one cut, printed:
+             train_cost_model's --steps): fusion_search;
              autotune_tilesize, whose Part B ranks the bf16 flash kernel's
              four (block_q, block_k) instantiations and times each on the
              card at S=4096, hd=128 (their launches on the kernels line);
@@ -287,7 +291,10 @@ DEVICE = "cuda"
 
 
 def log(*parts) -> None:
-    print(*parts, flush=True)
+    """One line to stdout in one write: lines logged from two threads
+    do not interleave."""
+    sys.stdout.write(" ".join(map(str, parts)) + "\n")
+    sys.stdout.flush()
 
 
 def time_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
@@ -305,18 +312,18 @@ def time_ms(fn, warmup: int = WARMUP, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, host_ops: bool = True) -> tuple[dict, float]:
+def device_profile(fn) -> tuple[dict, float]:
     """Run `fn()` once under torch.profiler. Returns ({kernel name:
     (launches, device µs)} over the CUDA kernels it ran, wall seconds).
-    `host_ops=False` records the device alone: a step of ~40k launches
-    then costs seconds of post-processing, not tens."""
+    It records the device alone: with the host's ops beside, the
+    post-processing of a pass of ~15k launches took ten seconds or more
+    (and a step of ~40k, tens)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU] * host_ops
-                 + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1608,14 +1615,13 @@ def _lm_tokens(cfg) -> dict:
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to(DEVICE)}
 
 
-def lm_forward(cfg, params, tag="lm-forward", batch=None,
-               profile_chunked=True) -> dict:
+def lm_forward(cfg, params, tag="lm-forward", batch=None) -> dict:
     """`loss_fn` over `batch` (LM_BATCH x LM_SEQ tokens by default) with
     the flash kernel and with chunked_attention, in the model's dtype:
     one launch per attention layer of the route of that dtype and head
     dim (`fa.route_for`), agreement within that dtype's limits, the first
     attention layer held apart, planted faults. The flash run is
-    profiled, and the chunked one unless not `profile_chunked`. Returns
+    profiled (the chunked reference is not). Returns
     {flag: {"loss", "last" (last-position logits, f32), "launches",
     "wall"}}."""
     import dataclasses
@@ -1660,7 +1666,7 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None,
             f"in {cfg.dtype} with {label}: loss {loss:.6f}, wall "
             f"{wall:.3f} s per forward, launches {launches}, peak memory "
             f"{peak / 2**30:.2f} GiB")
-        if flag or profile_chunked:
+        if flag:
             _log_profile(tag, lambda: lm.loss_fn(params, c, batch))
         if not (np.isfinite(loss) and torch.isfinite(last).all()
                 and last.shape == (B, 1, cfg.vocab_size)):
@@ -1701,11 +1707,11 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None,
     return res
 
 
-def _log_profile(tag, fn, top=5, host_ops=True) -> float:
+def _log_profile(tag, fn, top=5) -> float:
     """Profiles one `fn()` (`device_profile`): logs device seconds and
     the `top` kernels by device time, then the flash kernels wherever
     they rank (the pass's attention share); returns the device seconds."""
-    prof, wall = device_profile(fn, host_ops)
+    prof, wall = device_profile(fn)
     busy = sum(us for _, us in prof.values()) / 1e6
     log(f"[{tag}] profiled pass: wall {wall:.3f} s, device {busy:.3f} s "
         f"({busy / wall:.1%}), {sum(c for c, _ in prof.values())} kernel "
@@ -2405,7 +2411,8 @@ FW_STATIC_STEPS = 120
 FW_FT_STEPS = 120          # per-round fine-tune
 FW_WARM_STEPS = 150        # the warm-start vs scratch gate
 FW_MC_SAMPLES = 8
-FW_TIMED, FW_PROFILED = 50, 20
+FW_TIMED, FW_PROFILED = 20, 3
+FW_PREFETCH_STEPS = 40     # the input pipeline on vs off, bit for bit
 
 
 def flywheel_model_cfg(use_kernels: bool, adjacency: str = "dense"):
@@ -2691,8 +2698,8 @@ def flywheel_mc(model, world: dict, hard: dict) -> dict:
 
 def flywheel_prefetch(world: dict, chained, static_ckpt: str,
                       work: str) -> None:
-    """One round's fine-tune (FW_FT_STEPS from the static checkpoint on
-    the chained corpus) with the input pipeline off and on (depth 2,
+    """A fine-tune (FW_PREFETCH_STEPS from the static checkpoint on the
+    chained corpus, as a round's) with the input pipeline off and on (depth 2,
     device copies on a side stream): the same loss at every step and the
     same final parameters, bit for bit; then a timed and profiled
     window of each, and of the pipeline without device copies (its
@@ -2710,7 +2717,7 @@ def flywheel_prefetch(world: dict, chained, static_ckpt: str,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ft = fine_tune(chained, world["norm"], cfg,
-                       warm_start_dir=static_ckpt, steps=FW_FT_STEPS,
+                       warm_start_dir=static_ckpt, steps=FW_PREFETCH_STEPS,
                        lr=1e-3, warmup_steps=20, seed=0, prefetch=depth,
                        prefetch_device_put=depth > 0, log_every=1,
                        metrics_path=path, device=DEVICE)
@@ -2719,13 +2726,15 @@ def flywheel_prefetch(world: dict, chained, static_ckpt: str,
         with open(path) as f:
             losses = [json.loads(line)["loss"] for line in f]
         runs[depth] = (ft.params, losses)
-        log(f"[flywheel] fine-tune round, prefetch {depth}: {secs:.3f} s "
-            f"for {FW_FT_STEPS} steps ({secs / FW_FT_STEPS * 1e3:.3f} ms "
+        log(f"[flywheel] pipeline check, prefetch {depth}: {secs:.3f} s "
+            f"for {FW_PREFETCH_STEPS} steps "
+            f"({secs / FW_PREFETCH_STEPS * 1e3:.3f} ms "
             f"a step, host clock, a loss read back every step), last loss "
             f"{losses[-1]:.6f}")
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(runs[0][0].tree()), tree_leaves(runs[2][0].tree())))
-    same_losses = runs[0][1] == runs[2][1] and len(runs[0][1]) == FW_FT_STEPS
+    same_losses = (runs[0][1] == runs[2][1]
+                   and len(runs[0][1]) == FW_PREFETCH_STEPS)
     log(f"[flywheel] prefetch 2 vs 0: losses bit-identical at all "
         f"{len(runs[0][1])} steps: {same_losses}; final parameters "
         f"bit-identical: {same_params}")
@@ -2755,23 +2764,37 @@ def flywheel_clis(work: str, store: str, device) -> None:
     """The CLIs on `device`, each in its own process: `train cost-model
     --from-store` into a base checkpoint, then `--deltas --warm-start`
     from it; `launch.flywheel` twice on one fresh store (the second run,
-    at another seed, appends to the delta chain)."""
-    import re
+    at another seed, appends to the delta chain). The two chains share
+    nothing and run side by side; their times overlap."""
+    from concurrent.futures import ThreadPoolExecutor
     base, warm = os.path.join(work, "cli-base"), os.path.join(work,
                                                              "cli-warm")
-    t0 = time.perf_counter()
     common = ["repro_torch.launch.train", "cost-model", "--task", "tile",
               "--from-store", store, "--log-every", "10", "--device",
               str(device)]
-    out = _module_cli(common + ["--steps", "20", "--ckpt-dir", base])
-    out += _module_cli(common + ["--deltas", "--warm-start", base,
-                                 "--steps", "10", "--ckpt-dir", warm])
-    log(f"[flywheel] train CLI --from-store, then --deltas --warm-start: "
-        f"{time.perf_counter() - t0:.2f} s; "
+
+    def train_chain() -> tuple[str, float]:
+        t0 = time.perf_counter()
+        out = _module_cli(common + ["--steps", "20", "--ckpt-dir", base])
+        out += _module_cli(common + ["--deltas", "--warm-start", base,
+                                     "--steps", "10", "--ckpt-dir", warm])
+        return out, time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        train = pool.submit(train_chain)
+        flywheel_cli_chain(work, device)
+        out, secs = train.result()
+    log(f"[flywheel] train CLI --from-store, then --deltas --warm-start "
+        f"(beside launch.flywheel): {secs:.2f} s; "
         + " | ".join(line for line in out.splitlines() if line))
     if not ("chained" in out and "warm-started from" in out
             and "done: step=10" in out):
         raise AssertionError("train --from-store --deltas did not run")
+
+
+def flywheel_cli_chain(work: str, device) -> None:
+    """`launch.flywheel` twice on one fresh store, the second at another
+    seed: it must append to the first's delta chain."""
+    import re
     flags = ["repro_torch.launch.flywheel", "--store",
              os.path.join(work, "cli-store"), "--ckpt-dir",
              os.path.join(work, "cli-fw"), "--rounds", "2",
@@ -2786,7 +2809,8 @@ def flywheel_clis(work: str, store: str, device) -> None:
         if found is None:
             raise AssertionError(f"launch.flywheel printed no store: {out}")
         deltas.append(int(found.group(2)))
-        log(f"[flywheel] launch.flywheel {' '.join(extra) or '(seed 0)'}: "
+        log(f"[flywheel] launch.flywheel {' '.join(extra) or '(seed 0)'} "
+            f"(beside the train CLI): "
             f"{time.perf_counter() - t0:.2f} s; "
             + " | ".join(line for line in out.splitlines() if line))
     if not 0 < deltas[0] < deltas[1]:
@@ -2798,6 +2822,7 @@ def phase_flywheel(card: str, work: str) -> dict:
     """Phase 14: the data flywheel at bench_flywheel.py's constants.
     Returns the aggregation kernels' launches of its kernels-on runs
     (run_flywheel's scoring and acquisition, the MC check)."""
+    from concurrent.futures import ThreadPoolExecutor
     log(f"[flywheel] on {card}")
     t0 = time.perf_counter()
     world = flywheel_world(work)
@@ -2819,12 +2844,16 @@ def phase_flywheel(card: str, work: str) -> dict:
                              "not above 0")
     if not loop["parity"]:
         raise AssertionError("delta chain differs from its rebuild")
-    ratio = flywheel_warm_gate(world, loop["chained"], static_ckpt, DEVICE,
-                               work)
+    # the CLIs (processes of their own) run beside the warm-start gate,
+    # whose outcome no timing moves; the timed windows come after both
+    with ThreadPoolExecutor(1) as pool:
+        clis = pool.submit(flywheel_clis, work, world["store"], DEVICE)
+        ratio = flywheel_warm_gate(world, loop["chained"], static_ckpt,
+                                   DEVICE, work)
+        clis.result()
     if not ratio <= 0.5:
         raise AssertionError(f"warm-start steps ratio {ratio} > 0.5")
     flywheel_prefetch(world, loop["chained"], static_ckpt, work)
-    flywheel_clis(work, world["store"], DEVICE)
     log(f"[flywheel] phase took {time.perf_counter() - t0:.1f} s; kernel "
         f"launches of its kernels-on runs: {launches}")
     return launches
@@ -3082,8 +3111,7 @@ def _lm_train_run(cfg, batch, optimizer: str, lr, tag="lm-train") -> dict:
         modes.append(mode)
     peak = torch.cuda.max_memory_allocated()
     if optimizer == "adamw":        # where the time goes: one more step
-        prof, wall = device_profile(lambda: step(params, state, batch),
-                                    host_ops=False)
+        prof, wall = device_profile(lambda: step(params, state, batch))
         busy = sum(us for _, us in prof.values()) / 1e6
         log(f"[{tag}] {optimizer} profiled step: wall {wall:.3f} s, "
             f"device busy {busy:.3f} s ({busy / wall:.1%}), "
@@ -3165,8 +3193,9 @@ MOE_ARCH = "granite-moe-3b-a800m"
 MUSICGEN_ARCH, LLAVA_ARCH = "musicgen-large", "llava-next-34b"
 SSD_ARCH = "mamba2-2.7b"
 # llava-next-34b's 60 layers (68.8 GB of bf16 params) do not fit beside
-# the 2 x 8192 forward; its depth is cut to the first that fits
-LLAVA_DEPTHS = (60, 52, 48, 45, 40, 32)
+# the 2 x 8192 forward; 45 is the deepest that does on an 80 GB H100.
+# The script's time limit cuts it to the first of these that fits
+LLAVA_DEPTHS = (30, 24)
 FRONT_DECODE_STEPS = 8     # musicgen: greedy steps after its prefill
 # near-tie of top-k routing: the k-th and (k+1)-th router scores within
 # this of each other (relative to the k-th), ~100 f32 ulps: the two
@@ -3272,7 +3301,7 @@ def phase_lm_moe(card: str) -> dict:
         f"{cfg.moe.top_k} over {cfg.moe.num_experts} experts): "
         f"{drops['dropped']} (total {sum(drops['dropped'])} of "
         f"{T * cfg.moe.top_k * cfg.num_layers})")
-    res = lm_forward(cfg, params, "lm-moe", batch, profile_chunked=False)
+    res = lm_forward(cfg, params, "lm-moe", batch)
     moe_card_vs_cpu("lm-moe", cfg, drops["p0"], drops["x0"])
     del drops
     lm_serve(cfg, params, "lm-moe")
@@ -3330,7 +3359,7 @@ def musicgen_decode(cfg, params, tag) -> None:
 def phase_lm_frontends(card: str) -> dict:
     """Phase 18: musicgen-large (frame embeddings) at its full config,
     llava-next-34b (1152 patch positions + 7040 text tokens) at full
-    width and the deepest cut that fits. Returns each one's flash
+    width and the first of LLAVA_DEPTHS that fits. Returns each one's flash
     launches."""
     import torch
     from repro_torch.models import lm
@@ -3343,8 +3372,7 @@ def phase_lm_frontends(card: str) -> dict:
     _free_card()
     cfg, params = _lm_model(MUSICGEN_ARCH, "lm-frontends")
     batch = make_batch(cfg, shape, seed=0, device=DEVICE)
-    res = lm_forward(cfg, params, "lm-frontends", batch,
-                     profile_chunked=False)
+    res = lm_forward(cfg, params, "lm-frontends", batch)
     launches[MUSICGEN_ARCH] = res[True]["launches"]["flash_attention_tc"]
     musicgen_decode(cfg, params, "lm-frontends")
     del params, batch, res
@@ -3354,8 +3382,7 @@ def phase_lm_frontends(card: str) -> dict:
         try:
             cfg, params = _lm_model(LLAVA_ARCH, "lm-frontends", depth)
             batch = make_batch(cfg, shape, seed=0, device=DEVICE)
-            res = lm_forward(cfg, params, "lm-frontends", batch,
-                             profile_chunked=False)
+            res = lm_forward(cfg, params, "lm-frontends", batch)
             break
         except torch.cuda.OutOfMemoryError as e:
             log(f"[lm-frontends] {LLAVA_ARCH} at depth {depth} does not "
@@ -3364,8 +3391,8 @@ def phase_lm_frontends(card: str) -> dict:
         _free_card()
     else:
         raise AssertionError(f"[lm-frontends] {LLAVA_ARCH}: no depth fits")
-    cut = "" if depth == 60 else " (cut: deeper does not fit beside the " \
-        "forward)"
+    cut = "" if depth == 60 else " (cut: 45 is the deepest that fits " \
+        "beside the forward, the script's time limit cuts it further)"
     log(f"[lm-frontends] {LLAVA_ARCH}: depth {depth} of 60{cut}")
     launches[LLAVA_ARCH] = res[True]["launches"]["flash_attention_tc"]
     # prefill with the patches on all but the last text token, then
@@ -3414,8 +3441,7 @@ def phase_lm_ssd(card: str) -> dict:
     log(f"[lm-ssd] loss_fn over {LM_BATCH} x {LM_SEQ} tokens in "
         f"{cfg.dtype}: loss {loss:.6f}, wall {wall:.3f} s per forward, "
         f"launches {launches}, peak memory {peak / 2**30:.2f} GiB")
-    _log_profile("lm-ssd", lambda: lm.loss_fn(params, cfg, batch), top=8,
-                 host_ops=False)
+    _log_profile("lm-ssd", lambda: lm.loss_fn(params, cfg, batch), top=8)
     if not (np.isfinite(loss) and bool(torch.isfinite(last).all())):
         raise AssertionError("lm-ssd: non-finite output")
     if launches["flash_attention"] or launches["ssd_scan"]:
@@ -3540,8 +3566,7 @@ def phase_lm_rglru(card: str) -> dict:
                 f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
                 f"{lm.param_count(params)} params")
             with _first_call("rglru_apply_train") as first:
-                res = lm_forward(cfg, params, "lm-rglru",
-                                 profile_chunked=False)
+                res = lm_forward(cfg, params, "lm-rglru")
             break
         except torch.cuda.OutOfMemoryError as e:
             log(f"[lm-rglru] depth {depth} does not fit: "
@@ -3564,7 +3589,7 @@ def phase_lm_rglru(card: str) -> dict:
     params = lm.init_params(torch.Generator(device=DEVICE).manual_seed(0),
                             cfg, device=DEVICE)
     cfg32, params = as_f32(cfg, params, "lm-rglru-f32")
-    res = lm_forward(cfg32, params, "lm-rglru-f32", profile_chunked=False)
+    res = lm_forward(cfg32, params, "lm-rglru-f32")
     launches["flash_attention_hd256_f32"] = res[True]["launches"][
         "flash_attention_hd256_f32"]
     del params, res
@@ -3769,8 +3794,8 @@ def phase_lm_mla(card: str) -> None:
         log(f"[lm-mla] loss_fn over {LM_BATCH} x {LM_SEQ} tokens in "
             f"{cfg.dtype}: loss {loss:.6f}, wall {wall:.3f} s per forward, "
             f"launches {launches}, peak memory {peak / 2**30:.2f} GiB")
-        _log_profile("lm-mla", lambda: lm.loss_fn(params, cfg, batch), top=8,
-                     host_ops=False)
+        _log_profile("lm-mla", lambda: lm.loss_fn(params, cfg, batch),
+                     top=8)
         if not np.isfinite(loss) or any(launches.values()):
             raise AssertionError(f"lm-mla: loss {loss}, launches {launches}")
         c = dataclasses.replace(cfg, use_pallas_attn=True)
@@ -3813,6 +3838,9 @@ def phase_lm_mla(card: str) -> None:
 
 # -------------------------------------------------------------------- 23
 ROOFLINE_ARCH, ROOFLINE_SHAPE = "deepseek-v3-671b", "train_4k"
+# the dry-run's probe processes, beside the cell's and the phases of the
+# card: 6 of the host's 8 cores busy
+ROOFLINE_WORKERS = 4
 # lowers [lm-train]'s cell on a one-rank fake group; prints its record
 _ROOFLINE_CELL = """
 import dataclasses, json, sys
@@ -3838,23 +3866,30 @@ print(json.dumps({"cost": cell.cost_analysis,
 
 def _cpu_process(args: list) -> subprocess.Popen:
     """Starts `python args...` from the checkout with the card hidden (the
-    dry-run needs none, and its fake process group stays in it)."""
+    dry-run needs none, and its fake process group stays in it). Its
+    output goes to temporary files (`proc.logs`): no pipe fills while
+    nobody reads it."""
     env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=logs[0], stderr=logs[1], text=True)
+    proc.logs = logs
+    return proc
 
 
 def _finish(proc: subprocess.Popen, timeout: int = 300) -> str:
     """`proc`'s standard output once it exits 0; kills it past `timeout`
     and raises on any other end."""
     try:
-        out, err = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
-        proc.communicate()
+        proc.wait()
         raise AssertionError(f"[roofline] {proc.args[1:4]} ran past "
                              f"{timeout} s")
+    for f in proc.logs:
+        f.seek(0)
+    out, err = (f.read() for f in proc.logs)
     if proc.returncode != 0:
         raise AssertionError(f"[roofline] {proc.args[1:4]} failed "
                              f"({proc.returncode}): {out[-1500:]} "
@@ -3862,9 +3897,38 @@ def _finish(proc: subprocess.Popen, timeout: int = 300) -> str:
     return out
 
 
-def phase_roofline(card: str, lm_train: dict) -> None:
+@contextlib.contextmanager
+def roofline_lowerings(depth: int):
+    """Phase 23's two lowerings, each started in a CPU process of its own:
+    [lm-train]'s cell at `depth`, and deepseek's dry-run with
+    ROOFLINE_WORKERS probe processes. They run beside phases 17-22, which
+    keep the card busy and leave most of the host's cores idle;
+    `phase_roofline` collects them. Whatever still runs at the exit is
+    killed."""
+    out_dir = tempfile.TemporaryDirectory()
+    procs = {}
+    try:
+        procs["dryrun"] = _cpu_process([
+            "-m", "repro_torch.launch.dryrun", "--arch", ROOFLINE_ARCH,
+            "--shape", ROOFLINE_SHAPE, "--mesh", "single", "--workers",
+            str(ROOFLINE_WORKERS), "--out", out_dir.name])
+        procs["cell"] = _cpu_process(["-c", _ROOFLINE_CELL, json.dumps(
+            [ARCH, depth, LM_TRAIN_MICRO, LM_TRAIN_SEQ, LM_TRAIN_BATCH])])
+        yield dict(procs, t0=time.perf_counter(), out=out_dir.name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in proc.logs:
+                f.close()
+        out_dir.cleanup()
+
+
+def phase_roofline(card: str, lm_train: dict, started: dict) -> None:
     """Phase 23: the lowering's counts against [lm-train]'s measured step,
-    then deepseek-v3-671b's train cell on the 16x16 mesh."""
+    then deepseek-v3-671b's train cell on the 16x16 mesh, from the
+    processes `roofline_lowerings` started."""
     import dataclasses
 
     import torch
@@ -3877,21 +3941,7 @@ def phase_roofline(card: str, lm_train: dict) -> None:
     depth = lm_train["depth"]
     measured_s = lm_train["adamw"]["s"]
     peak = lm_train["adamw"]["peak"]
-    # both lowerings at once, each in a CPU process of its own
-    out_dir = tempfile.TemporaryDirectory()
-    dryrun = _cpu_process(["-m", "repro_torch.launch.dryrun", "--arch",
-                           ROOFLINE_ARCH, "--shape", ROOFLINE_SHAPE,
-                           "--mesh", "single", "--workers", "7",
-                           "--out", out_dir.name])
-    try:
-        out = _finish(_cpu_process(["-c", _ROOFLINE_CELL, json.dumps(
-            [ARCH, depth, LM_TRAIN_MICRO, LM_TRAIN_SEQ, LM_TRAIN_BATCH])]))
-    except BaseException:
-        dryrun.kill()
-        dryrun.communicate()
-        out_dir.cleanup()
-        raise
-    cell = json.loads(out.strip().splitlines()[-1])
+    cell = json.loads(_finish(started["cell"]).strip().splitlines()[-1])
     full = registry.get_config(ARCH)
     cfg = dataclasses.replace(full, microbatch=LM_TRAIN_MICRO,
                               stacks=(Stack(full.stacks[0].pattern, depth),))
@@ -3901,11 +3951,11 @@ def phase_roofline(card: str, lm_train: dict) -> None:
     flops = cell["cost"]["flops"]
     mf = model_flops(cfg, shape, cell["params_bytes"] // 2)
     args_bytes = cell["memory"]["argument_size_in_bytes"]
-    t_cell = time.perf_counter() - t0
+    t_cell = time.perf_counter() - started["t0"]
     log(f"[roofline] {ARCH} train cell of [lm-train] (depth {depth}, "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, microbatch "
         f"{LM_TRAIN_MICRO}, AdamW) lowered on a 1x1 mesh, {t_cell:.1f} s "
-        f"to its record: counted FLOPs {flops:.6e}, model FLOPs "
+        f"from its start (beside phases 17-22) to its record: counted FLOPs {flops:.6e}, model FLOPs "
         f"{mf:.6e} (6·N·tokens + head), useful ratio "
         f"{row.useful_ratio:.4f}")
     log(f"[roofline] ops run replicated: {cell['fallbacks'] or 'none'} "
@@ -3928,13 +3978,10 @@ def phase_roofline(card: str, lm_train: dict) -> None:
         raise AssertionError(f"[roofline] predicted arguments {args_bytes} "
                              f"exceed the measured peak {peak}")
 
-    with out_dir:
-        _finish(dryrun, timeout=600)
-        path = os.path.join(
-            out_dir.name,
-            f"pod16x16__{ROOFLINE_ARCH}__{ROOFLINE_SHAPE}.json")
-        with open(path) as f:
-            ds = json.load(f)
+    _finish(started["dryrun"], timeout=600)
+    with open(os.path.join(started["out"], f"pod16x16__{ROOFLINE_ARCH}__"
+                           f"{ROOFLINE_SHAPE}.json")) as f:
+        ds = json.load(f)
     if ds.get("status") != "ok":
         raise AssertionError(f"[roofline] dry-run record: {ds}")
     ds_cfg = registry.get_config(ROOFLINE_ARCH)
@@ -3967,7 +4014,9 @@ def phase_roofline(card: str, lm_train: dict) -> None:
         f"{(coll - fb) / H100_HW['link_bw']:.4f} s, from the ops run "
         f"replicated {fb / H100_HW['link_bw']:.4f} s) -> "
         f"{ds_row.dominant}; useful ratio {ds_row.useful_ratio:.4f}")
-    log(f"[roofline] phase took {time.perf_counter() - t0:.1f} s")
+    log(f"[roofline] phase took {time.perf_counter() - t0:.1f} s after "
+        f"phase 22 ({time.perf_counter() - started['t0']:.1f} s from the "
+        f"lowerings' start)")
 
 
 # -------------------------------------------------------------------- 24
@@ -3987,6 +4036,9 @@ FLASH_BLOCK_ROWS = {(128, 128): "flash_attention",
 # two candidates of one list within this of each other (relative to the
 # list's largest |score|) are a near-tie: counted, not excused
 EX_TIE_RTOL = 1e-5
+# train_cost_model's --steps (the reference's default 600), cut for the
+# script's time limit; its checkpoint and evaluation cadence is 200
+EX_TRAIN_STEPS = 200
 
 
 def _example(name: str, argv: list, **kw):
@@ -4072,19 +4124,22 @@ def ex_quickstart() -> dict:
 
 
 def ex_train_cost_model(tmp: str) -> dict:
-    """train_cost_model at its defaults, dense then sparse, evaluating
+    """train_cost_model at EX_TRAIN_STEPS, dense then sparse, evaluating
     and autotuning with the kernels on, into a temporary --ckpt-dir; the
     dense run once more, resumed from its last checkpoint, must report
     what the first did."""
     out = {"graph_aggregate": 0, "segment_aggregate": 0}
     lines = {}
+    log(f"[examples] cut: train_cost_model --steps {EX_TRAIN_STEPS} (the "
+        "reference's default 600; the script's time limit)")
     for run, adjacency, kernel in (("dense", "dense", "graph_aggregate"),
                                    ("sparse", "sparse", "segment_aggregate"),
                                    ("resumed", "dense", "graph_aggregate")):
         ckpt = os.path.join(tmp, adjacency)
         _reset_launches()
         _, lines[run] = _example(
-            "train_cost_model", ["--adjacency", adjacency, "--ckpt-dir",
+            "train_cost_model", ["--steps", str(EX_TRAIN_STEPS),
+                                 "--adjacency", adjacency, "--ckpt-dir",
                                  ckpt, "--device", DEVICE],
             use_kernels=True)
         launches = _launches()
@@ -4217,7 +4272,8 @@ def phase_examples(card: str) -> dict:
     the instantiations, "launches": the examples' own launch counts}."""
     from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
-    log(f"[examples] {card}: the six twins at the reference's defaults")
+    log(f"[examples] {card}: the six twins at the reference's defaults, "
+        "but for the cut below")
     _example("fusion_search", [])
     # Part B times each candidate on the card: the instantiations' path
     _reset_launches()
@@ -4366,34 +4422,37 @@ def main() -> int:
     del trained
     lm_train = phase_lm_train(card)
 
-    # 17-19: the MoE ffn, the two front ends, the SSD mixer
-    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 17")
-    with torch.inference_mode():
-        moe = phase_lm_moe(card)
-        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 18")
-        fronts = phase_lm_frontends(card)
-        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 19")
-        ssd = phase_lm_ssd(card)
-    rows["flash_attention"]["launches"] += (moe["flash_attention_tc"]
-                                           + sum(fronts.values()))
-    rows["ssd_scan"]["launches"] += ssd["ssd_scan"]
+    # 23's lowerings (CPU processes) run from here beside 17-22
+    with roofline_lowerings(lm_train["depth"]) as lowerings:
+        # 17-19: the MoE ffn, the two front ends, the SSD mixer
+        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 17")
+        with torch.inference_mode():
+            moe = phase_lm_moe(card)
+            log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 18")
+            fronts = phase_lm_frontends(card)
+            log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 19")
+            ssd = phase_lm_ssd(card)
+        rows["flash_attention"]["launches"] += (moe["flash_attention_tc"]
+                                               + sum(fronts.values()))
+        rows["ssd_scan"]["launches"] += ssd["ssd_scan"]
 
-    # 20-21: the RG-LRU mixer with the hd-256 flash routes, the importer
-    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 20")
-    with torch.inference_mode():
-        rows_rg = phase_lm_rglru(card)
-    for name, n in rows_rg.items():
-        rows[name]["launches"] = n
-    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 21")
-    imported = phase_import(card, replay, seg_qm)
+        # 20-21: the RG-LRU mixer with the hd-256 flash routes, the importer
+        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 20")
+        with torch.inference_mode():
+            rows_rg = phase_lm_rglru(card)
+        for name, n in rows_rg.items():
+            rows[name]["launches"] = n
+        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 21")
+        imported = phase_import(card, replay, seg_qm)
 
-    # 22: deepseek-v3-671b's MLA (no kernel, as in the reference)
-    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 22")
-    phase_lm_mla(card)
+        # 22: deepseek-v3-671b's MLA (no kernel, as in the reference)
+        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 22")
+        phase_lm_mla(card)
 
-    # 23: the dry-run lowering against [lm-train]'s step, deepseek on 16x16
-    log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 23")
-    phase_roofline(card, lm_train)
+        # 23: the dry-run lowering against [lm-train]'s step, deepseek on
+        # the 16x16 mesh
+        log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 23")
+        phase_roofline(card, lm_train, lowerings)
 
     # 24: the six examples, the flash kernel's block shapes
     log(f"[time] {time.perf_counter() - t_start:.1f} s: phase 24")

@@ -229,3 +229,17 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
                          cwd=tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_smoke_timeline_fails_without_a_card_and_ranks_the_gaps():
+    res = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.smoke_timeline", "--gaps", "3"],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr and '"ok"' not in res.stdout
+    from repro_torch.launch.smoke_timeline import largest_gaps
+    lines = ["     1.0 [a] one", "unstamped", "     4.5 [b] two",
+             "     5.0 [c] three"]
+    assert largest_gaps(lines, 2) == [(3.5, 4.5, "[b] two"),
+                                      (1.0, 1.0, "[a] one")]
