@@ -35,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.hlo_import import loop
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
@@ -111,6 +112,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mapping the queries split by position over the model axis and the
     keys and values are whole there (`constrain`; not in the reference,
     where GSPMD finds a layout, and the identity otherwise)."""
+    with tracing.span("attn.core"):
+        return _chunked_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, block_kv=block_kv)
+
+
+def _chunked_attention(q, k, v, *, causal, window, q_offset, block_kv):
     q = constrain(q, "attn_q")
     k = constrain(k, "attn_kv")
     v = constrain(v, "attn_kv")
@@ -161,6 +168,12 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     window: int | None = None) -> torch.Tensor:
     """Decode: q [B,1,H,hd] over cache [B,C,KH,hd]; k_pos [B,C] absolute
     positions of cached keys (-1 = empty slot)."""
+    with tracing.span("attn.core"):
+        return _cache_attention(q, k_cache, v_cache, k_pos, pos,
+                                window=window)
+
+
+def _cache_attention(q, k_cache, v_cache, k_pos, pos, *, window):
     B, _, H, hd = q.shape
     C, KH = k_cache.shape[1], k_cache.shape[2]
     rep = H // KH
@@ -408,38 +421,51 @@ def moe_apply(params: dict, cfg: ModelConfig,
     """x: [B,S,D]. Sort-based dispatch with per-expert capacity + drop.
     The scatters write each slot once but the sentinel E·cap, which the
     dropped pairs share and which is thrown away, so their order under
-    duplicate indices never matters."""
+    duplicate indices never matters.
+
+    While `tracing` records, the counter `moe.experts_hit` gets the
+    experts with at least one kept pair (those whose first slot is used:
+    every expert with a pair keeps its first, since `cap` >= 8) and
+    `moe.experts_read` the experts whose weights the expert products
+    read: all E."""
     mc = cfg.moe
     B, S, D = x.shape
     T = B * S
     K, E = mc.top_k, mc.num_experts
     xf = x.reshape(T, D)
-    gates, ids = _route(params, mc, xf)
-    cap = moe_capacity(T, mc)
-    sort_idx, slot_sorted, keep = moe_dispatch(ids, E, cap)
+    with tracing.span("moe.route"):
+        gates, ids = _route(params, mc, xf)
+    with tracing.span("moe.dispatch"):
+        cap = moe_capacity(T, mc)
+        sort_idx, slot_sorted, keep = moe_dispatch(ids, E, cap)
+        tok_sorted = sort_idx // K
+        dispatch_tok = torch.zeros(E * cap + 1, dtype=torch.long,
+                                   device=x.device)
+        dispatch_tok[slot_sorted] = tok_sorted
+        slot_used = torch.zeros(E * cap + 1, dtype=torch.bool,
+                                device=x.device)
+        slot_used[slot_sorted] = keep
+        xe = xf[dispatch_tok[:E * cap]] * slot_used[:E * cap, None]
+        xe = constrain(xe.reshape(E, cap, D), "moe_ecd")
+    if tracing.recording():
+        tracing.count("moe.experts_hit", slot_used[:E * cap:cap])
+        tracing.count("moe.experts_read", E)
 
-    tok_sorted = sort_idx // K
-    dispatch_tok = torch.zeros(E * cap + 1, dtype=torch.long,
-                               device=x.device)
-    dispatch_tok[slot_sorted] = tok_sorted
-    slot_used = torch.zeros(E * cap + 1, dtype=torch.bool, device=x.device)
-    slot_used[slot_sorted] = keep
-    xe = xf[dispatch_tok[:E * cap]] * slot_used[:E * cap, None]
-    xe = constrain(xe.reshape(E, cap, D), "moe_ecd")
-
-    h = _silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe,
-                                                           params["w_up"])
-    ye = torch.bmm(h, params["w_down"])
-    ye_flat = torch.cat([ye.reshape(E * cap, D), ye.new_zeros((1, D))])
-
-    # route outputs back to (token, k) order
-    slot_of_flat = torch.empty(T * K, dtype=torch.long, device=x.device)
-    slot_of_flat[sort_idx] = slot_sorted
-    yk = ye_flat[slot_of_flat].reshape(T, K, D)
-    out = torch.sum(yk * gates[..., None].to(yk.dtype), dim=1)
+    with tracing.span("moe.experts"):
+        h = _silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(
+            xe, params["w_up"])
+        ye = torch.bmm(h, params["w_down"])
+    with tracing.span("moe.combine"):
+        ye_flat = torch.cat([ye.reshape(E * cap, D), ye.new_zeros((1, D))])
+        # route outputs back to (token, k) order
+        slot_of_flat = torch.empty(T * K, dtype=torch.long, device=x.device)
+        slot_of_flat[sort_idx] = slot_sorted
+        yk = ye_flat[slot_of_flat].reshape(T, K, D)
+        out = torch.sum(yk * gates[..., None].to(yk.dtype), dim=1)
 
     if mc.num_shared_experts:
-        out = out + mlp_apply(params["shared"], xf)
+        with tracing.span("moe.shared"):
+            out = out + mlp_apply(params["shared"], xf)
     return out.reshape(B, S, D).to(x.dtype)
 
 
@@ -562,13 +588,14 @@ def mla_apply_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     ckv, krope, kp = cache["ckv"], cache["krope"], cache["k_pos"]
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"])[:, 0]
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    s = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv.float())
-         + torch.einsum("bhk,btk->bht", q_rope[:, 0].float(),
-                        krope.float())) * scale
-    valid = (kp >= 0) & (kp <= pos)
-    s = torch.where(valid[:, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    ctx_lat = torch.einsum("bht,btr->bhr", p, ckv.float())
+    with tracing.span("attn.core"):
+        s = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv.float())
+             + torch.einsum("bhk,btk->bht", q_rope[:, 0].float(),
+                            krope.float())) * scale
+        valid = (kp >= 0) & (kp <= pos)
+        s = torch.where(valid[:, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bht,btr->bhr", p, ckv.float())
     v = torch.einsum("bhr,rhk->bhk", ctx_lat.to(_dt(cfg)), params["wuv"])
     y = torch.einsum("bhk,hkd->bd", v, params["wo"])[:, None, :]
     return y, cache

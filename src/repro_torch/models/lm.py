@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.core import hlo_import
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
@@ -59,6 +60,9 @@ from repro_torch.training.optim import AdamWConfig, adamw_init, \
     adamw_update_, divide, tree_leaves, tree_map, tree_unflatten
 
 _MIXERS = ("attn", "swa", "mla", "ssd", "rglru")
+# span names, built once: a span site then passes a constant
+_MIXER_SPAN = {m: f"mixer.{m}" for m in _MIXERS}
+_FFN_SPAN = {"mlp": "ffn.mlp", "moe": "ffn.moe"}
 
 
 def _parse(elem: str) -> tuple[str, str]:
@@ -122,9 +126,10 @@ def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
 def _ffn(params: dict, cfg: ModelConfig, ffn: str,
          x: torch.Tensor) -> torch.Tensor:
     if ffn != "none":
-        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-        x = x + (L.mlp_apply(params["ffn"], h) if ffn == "mlp"
-                 else L.moe_apply(params["ffn"], cfg, h))
+        with tracing.span(_FFN_SPAN[ffn]):
+            h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+            x = x + (L.mlp_apply(params["ffn"], h) if ffn == "mlp"
+                     else L.moe_apply(params["ffn"], cfg, h))
     return x
 
 
@@ -165,19 +170,20 @@ def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
                        x: torch.Tensor, cache: dict, pos: int) -> tuple:
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if mixer == "mla":
-        h, new_cache = L.mla_apply_decode(params["mixer"], cfg, h, cache,
-                                          pos)
-    elif mixer == "ssd":
-        h, new_cache = L.ssd_apply_decode(params["mixer"], cfg, h, cache,
-                                          pos)
-    elif mixer == "rglru":
-        h, new_cache = L.rglru_apply_decode(params["mixer"], cfg, h, cache,
-                                            pos)
-    else:
-        h, new_cache = L.attn_apply_decode(params["mixer"], cfg, h, cache,
-                                           pos,
-                                           window=_mixer_window(cfg, mixer))
+    with tracing.span(_MIXER_SPAN[mixer]):
+        if mixer == "mla":
+            h, new_cache = L.mla_apply_decode(params["mixer"], cfg, h, cache,
+                                              pos)
+        elif mixer == "ssd":
+            h, new_cache = L.ssd_apply_decode(params["mixer"], cfg, h, cache,
+                                              pos)
+        elif mixer == "rglru":
+            h, new_cache = L.rglru_apply_decode(params["mixer"], cfg, h,
+                                                cache, pos)
+        else:
+            h, new_cache = L.attn_apply_decode(
+                params["mixer"], cfg, h, cache, pos,
+                window=_mixer_window(cfg, mixer))
     return _ffn(params, cfg, ffn, x + h), new_cache
 
 
@@ -188,36 +194,40 @@ def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
     `use_pallas_attn` says."""
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    with tracing.span(_MIXER_SPAN[mixer]):
+        h, cache = _mixer_prefill(params["mixer"], cfg, mixer, h, capacity)
+    return _ffn(params, cfg, ffn, x + h), cache
+
+
+def _mixer_prefill(params: dict, cfg: ModelConfig, mixer: str,
+                   h: torch.Tensor, capacity: int) -> tuple:
+    """The mixer's output over the normed input `h` and its decode
+    cache."""
     if mixer == "mla":
         # the latent for the cache, then the train path, which computes
         # it again (as the reference does); both padded to `capacity`
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device)
-        ckv, krope = L._mla_kv_latent(params["mixer"], cfg, h, positions)
+        ckv, krope = L._mla_kv_latent(params, cfg, h, positions)
         pad = capacity - S
         cache = {"ckv": F.pad(ckv, (0, 0, 0, pad)),
                  "krope": F.pad(krope, (0, 0, 0, pad)),
                  "k_pos": F.pad(positions.to(torch.int32).expand(B, S),
                                 (0, pad), value=-1)}
-        h = L.mla_apply_train(params["mixer"], cfg, h)
-        return _ffn(params, cfg, ffn, x + h), cache
+        return L.mla_apply_train(params, cfg, h), cache
     if mixer == "ssd":
-        h, cache = L.ssd_apply_train(params["mixer"], cfg, h,
-                                     return_state=True)
-        return _ffn(params, cfg, ffn, x + h), cache
+        return L.ssd_apply_train(params, cfg, h, return_state=True)
     if mixer == "rglru":
-        h, conv, h_last = L.rglru_core(params["mixer"], cfg, h)
-        return _ffn(params, cfg, ffn, x + h), {"state": h_last.float(),
-                                               "conv": conv}
+        h, conv, h_last = L.rglru_core(params, cfg, h)
+        return h, {"state": h_last.float(), "conv": conv}
     window = _mixer_window(cfg, mixer)
     positions = torch.arange(h.shape[1], device=h.device)
-    q, k, v = L.attn_qkv(params["mixer"], cfg, h, positions)
+    q, k, v = L.attn_qkv(params, cfg, h, positions)
     out = L.chunked_attention(q, k, v, causal=True, window=window,
                               block_kv=cfg.block_kv)
-    h = torch.einsum("bshk,hkd->bsd", out, params["mixer"]["wo"])
-    cache = L.attn_make_cache_from_prefill(cfg, k, v, window=window,
-                                           capacity=capacity)
-    return _ffn(params, cfg, ffn, x + h), cache
+    h = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return h, L.attn_make_cache_from_prefill(cfg, k, v, window=window,
+                                             capacity=capacity)
 
 
 # ----------------------------------------------------------------------------
@@ -430,25 +440,43 @@ def cache_abstract(cfg: ModelConfig, batch: int, capacity: int) -> list:
 
 
 def prefill_step_fn(cfg: ModelConfig, capacity: int):
+    """`prefill(params, batch) -> (logits of the last position, caches)`,
+    recorded as the root span `lm.prefill` while `tracing` records."""
     def prefill(params, batch):
-        x = _embed_inputs(params, cfg, batch)
+        with tracing.span("lm.prefill") as s:
+            if s is not None:
+                s.attrs.update(_prefill_attrs(cfg, batch))
+            return _prefill(params, batch)
+
+    def _prefill(params, batch):
+        with tracing.span("embed"):
+            x = _embed_inputs(params, cfg, batch)
         caches = []
         for stack, elem_params in zip(cfg.stacks, params["stacks"]):
             per_layer = []
             for i in range(stack.repeats):
                 layer_caches = []
                 for elem, p in zip(stack.pattern, elem_params):
-                    x, c = block_apply_prefill(_index(p, i), cfg, elem, x,
-                                               capacity)
+                    with tracing.span("block"):
+                        x, c = block_apply_prefill(_index(p, i), cfg, elem,
+                                                   x, capacity)
                     layer_caches.append(c)
                 per_layer.append(layer_caches)
             caches.append(tuple(_stack([lc[e] for lc in per_layer])
                                 for e in range(len(stack.pattern))))
-        h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = logits_fn(params, cfg, h[:, -1:, :])
+        with tracing.span("logits"):
+            h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = logits_fn(params, cfg, h[:, -1:, :])
         return logits, caches
 
     return prefill
+
+
+def _prefill_attrs(cfg: ModelConfig, batch: dict) -> dict:
+    """`lm.prefill`'s attributes: the batch and the sequence length."""
+    x = batch["embeddings"] if cfg.embed_inputs else batch["tokens"]
+    return {"batch": x.shape[0],
+            "seq": x.shape[1] + (cfg.num_patch_tokens or 0)}
 
 
 def decode_step_fn(cfg: ModelConfig):
@@ -457,16 +485,24 @@ def decode_step_fn(cfg: ModelConfig):
         embeds tokens here, the front-end ones too. Updates `caches` in
         place; returns (logits [B,1,V], caches)."""
         pos = int(pos)
-        x = _embed_tokens(params, cfg, tokens)
-        for stack, elem_params, stack_cache in zip(cfg.stacks,
-                                                   params["stacks"], caches):
-            for i in range(stack.repeats):
-                for elem, p, c in zip(stack.pattern, elem_params,
-                                      stack_cache):
-                    x, _ = block_apply_decode(_index(p, i), cfg, elem, x,
-                                              _index(c, i), pos)
-        h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return logits_fn(params, cfg, h), caches
+        with tracing.span("lm.decode") as s:
+            if s is not None:
+                s.attrs.update(batch=tokens.shape[0], pos=pos)
+            with tracing.span("embed"):
+                x = _embed_tokens(params, cfg, tokens)
+            for stack, elem_params, stack_cache in zip(
+                    cfg.stacks, params["stacks"], caches):
+                for i in range(stack.repeats):
+                    for elem, p, c in zip(stack.pattern, elem_params,
+                                          stack_cache):
+                        with tracing.span("block"):
+                            x, _ = block_apply_decode(_index(p, i), cfg,
+                                                      elem, x, _index(c, i),
+                                                      pos)
+            with tracing.span("logits"):
+                h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+                logits = logits_fn(params, cfg, h)
+        return logits, caches
 
     return decode
 
