@@ -175,7 +175,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
              launches of the tensor-core kernel at hd 64) and with
              `chunked_attention`, held as in 9 (planted faults for a
              full-causal layer: output zeroed, causal mask off, 64 future
-             keys seen); layer 0's `moe_apply` in f32 on the card against
+             keys seen); `prefill_step_fn` over the same tokens with
+             the flag (32 launches of the tensor-core kernel, the route
+             of the benchmark's granite cells) and without (none): last
+             logits within the same limit, layer 0's caches bit for bit;
+             layer 0's `moe_apply` in f32 on the card against
              the CPU (routing and capacity alike but for top-k
              near-ties, which are counted); the serve loop as in 10,
              whose decode check first asserts that no token was dropped.
@@ -1183,6 +1187,10 @@ FLASH_CASES = (
     ("f32-q3", 1, 1024, 32, 8, 120, True, 256, "float32", 10),
     # the layers of granite-moe-3b-a800m, musicgen-large, llava-next-34b
     ("granite-layer", LM_BATCH, LM_SEQ, 24, 8, 64, True, None, "bfloat16", 5),
+    # granite's layer at the shapes its two benchmark prefill cells give
+    # the kernel (4 x 4096 and 32 x 512 tokens)
+    ("granite-4k", 4, 4096, 24, 8, 64, True, None, "bfloat16", 5),
+    ("granite-512", 32, 512, 24, 8, 64, True, None, "bfloat16", 10),
     ("musicgen-layer", LM_BATCH, LM_SEQ, 32, 32, 64, True, None, "bfloat16",
      5),
     ("llava-layer", LM_BATCH, LM_SEQ, 56, 8, 128, True, None, "bfloat16", 5),
@@ -1705,6 +1713,57 @@ def lm_forward(cfg, params, tag="lm-forward", batch=None) -> dict:
         log(f"[{tag}] planted fault, {label}, end to end: {text}: "
             f"{'caught' if hit else 'MISSED'}")
     return res
+
+
+def lm_prefill_route(cfg, params, tag, batch) -> None:
+    """`prefill_step_fn` over `batch` with `use_pallas_attn` and without:
+    one launch of the tensor-core kernel per attention layer and call
+    with the flag, none without; the last position's logits within the
+    model's logit limit (`_lm_limits`) times max|logits|; layer 0's
+    caches (its keys and values come before any attention) bit for bit."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    rtol = _lm_limits(cfg)[1]
+    n_attn = sum(stack.repeats for stack in cfg.stacks
+                 for elem in stack.pattern
+                 if elem.split("+")[0] in ("attn", "swa"))
+    S = batch["tokens"].shape[1]
+    out = {}
+    for flag in (True, False):
+        c = dataclasses.replace(cfg, use_pallas_attn=flag)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            fa.launches_tc = 0
+            t0 = time.perf_counter()
+            logits, caches = lm.prefill_step_fn(c, capacity=S)(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fa.launches_tc
+        first = {k: v[0].clone() for k, v in caches[0][0].items()}
+        del caches
+        out[flag] = logits.float(), first
+        log(f"[{tag}] prefill_step_fn over {tuple(batch['tokens'].shape)} "
+            f"tokens, use_pallas_attn={flag}: {wall:.3f} s, tensor-core "
+            f"flash launches {launches}")
+        if launches != (n_attn if flag else 0):
+            raise AssertionError(f"{tag}: prefill with use_pallas_attn="
+                                 f"{flag} launched the tensor-core kernel "
+                                 f"{launches} times, expected "
+                                 f"{n_attn if flag else 0}")
+    (got, first), (want, ref) = out[True], out[False]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    same = all(torch.equal(first[k], ref[k]) for k in ref)
+    log(f"[{tag}] prefill, flash kernel vs chunked_attention: max|Δlogits| "
+        f"{err:.4e} (tol {rtol * scale:.4e}, max|logits| {scale:.4f}); "
+        f"layer 0's caches {'equal' if same else 'DIFFER'}")
+    if not (bool(torch.isfinite(got).all()) and err <= rtol * scale
+            and same):
+        raise AssertionError(f"{tag}: prefill, kernel vs chunked out of "
+                             "tolerance")
 
 
 def _log_profile(tag, fn, top=5) -> float:
@@ -3281,8 +3340,9 @@ def moe_card_vs_cpu(tag, cfg, p0, x0) -> None:
 def phase_lm_moe(card: str) -> dict:
     """Phase 17: granite-moe-3b-a800m at its full config: the pairs each
     layer drops at capacity, `lm_forward` (flash kernel at hd 64 vs
-    chunked_attention), layer 0's MoE card vs CPU, the serve loop.
-    Returns the flash run's launches."""
+    chunked_attention), the prefill's route (`lm_prefill_route`), layer
+    0's MoE card vs CPU, the serve loop. Returns the flash run's
+    launches."""
     import dataclasses
 
     from repro_torch.models import layers, lm
@@ -3302,6 +3362,7 @@ def phase_lm_moe(card: str) -> dict:
         f"{drops['dropped']} (total {sum(drops['dropped'])} of "
         f"{T * cfg.moe.top_k * cfg.num_layers})")
     res = lm_forward(cfg, params, "lm-moe", batch)
+    lm_prefill_route(cfg, params, "lm-moe", batch)
     moe_card_vs_cpu("lm-moe", cfg, drops["p0"], drops["x0"])
     del drops
     lm_serve(cfg, params, "lm-moe")

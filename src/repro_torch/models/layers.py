@@ -4,14 +4,17 @@ multi-head latent attention (MLA), the SwiGLU MLP, the token-choice MoE
 ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU mixer.
 
 Port of `repro.models.layers`. Parameters are dicts
-of tensors laid out as the reference's pytrees. Train and prefill attend
-with `chunked_attention` (an online softmax over KV blocks) or, when
-`cfg.use_pallas_attn` is set, with the hand-written flash-attention
-kernel (`repro_torch.kernels.flash_attention`); decode attends over a
-cache (a ring buffer for sliding-window layers) with `cache_attention`.
-MLA attends with `chunked_attention` whatever the flag says, as the
-reference does, and decodes in the absorbed form over its compressed
-cache (the KV latent and one rope key per position).
+of tensors laid out as the reference's pytrees. GQA and sliding-window
+layers attend in train and prefill through `attend`: with the
+hand-written flash-attention kernel (`repro_torch.kernels.flash_attention`)
+when `cfg.use_pallas_attn` is set, else with `chunked_attention` (an
+online softmax over KV blocks). The reference prefills with
+`chunked_attention` whatever the flag says; the kernel computes the same
+softmax. Decode attends over a cache (a ring buffer for sliding-window
+layers) with `cache_attention`. MLA attends with `chunked_attention`
+whatever the flag says, as the reference does, and decodes in the
+absorbed form over its compressed cache (the KV latent and one rope key
+per position).
 The MoE ffn dispatches by a stable sort into per-expert capacity slots
 and drops what overflows, as the reference does; its expert products are
 batched matmuls. The SSD mixer takes the reference's chunked algorithm,
@@ -118,6 +121,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _chunked_attention(q, k, v, *, causal, window, q_offset, block_kv):
+    tracing.count("attn.chunked_calls", 1)
     q = constrain(q, "attn_q")
     k = constrain(k, "attn_kv")
     v = constrain(v, "attn_kv")
@@ -161,6 +165,26 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, block_kv):
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
     return out.to(q.dtype)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ModelConfig, *, window: int | None,
+           q_offset: int = 0) -> torch.Tensor:
+    """Causal GQA attention of the train and prefill paths (`attn` and
+    `swa` layers), q: [B,S,H,hd]; k,v: [B,T,KH,hd]. With
+    `cfg.use_pallas_attn` the flash-attention kernel, counted as
+    `attn.kernel_calls` (a shape it refuses raises); otherwise
+    `chunked_attention` at `cfg.block_kv`. On a card the kernel's own
+    launch counters (`flash_attention.launches`) count the same calls;
+    this counter is the route's record on the CPU, where the kernel's
+    plain version launches nothing, and in `tracing`'s counters."""
+    with tracing.span("attn.core"):
+        if cfg.use_pallas_attn:
+            tracing.count("attn.kernel_calls", 1)
+            return flash_attention(q, k, v, causal=True, window=window,
+                                   q_offset=int(q_offset))
+        return _chunked_attention(q, k, v, causal=True, window=window,
+                                  q_offset=q_offset, block_kv=cfg.block_kv)
 
 
 def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -241,12 +265,7 @@ def attn_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     B, S, D = x.shape
     positions = q_offset + torch.arange(S, device=x.device)
     q, k, v = attn_qkv(params, cfg, x, positions)
-    if cfg.use_pallas_attn:
-        out = flash_attention(q, k, v, causal=True, window=window,
-                              q_offset=int(q_offset))
-    else:
-        out = chunked_attention(q, k, v, causal=True, window=window,
-                                q_offset=q_offset, block_kv=cfg.block_kv)
+    out = attend(q, k, v, cfg, window=window, q_offset=q_offset)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 

@@ -189,9 +189,10 @@ def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
 
 def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
                         x: torch.Tensor, capacity: int) -> tuple:
-    """Like train, but also returns the decode cache for this layer. As
-    in the reference, prefill attends with `chunked_attention` whatever
-    `use_pallas_attn` says."""
+    """Like train, but also returns the decode cache for this layer.
+    GQA and sliding-window layers attend as in train (`layers.attend`:
+    the flash kernel with `use_pallas_attn`, where the reference keeps
+    `chunked_attention`); MLA attends with `chunked_attention`."""
     mixer, ffn = _check_elem(elem)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     with tracing.span(_MIXER_SPAN[mixer]):
@@ -223,8 +224,7 @@ def _mixer_prefill(params: dict, cfg: ModelConfig, mixer: str,
     window = _mixer_window(cfg, mixer)
     positions = torch.arange(h.shape[1], device=h.device)
     q, k, v = L.attn_qkv(params, cfg, h, positions)
-    out = L.chunked_attention(q, k, v, causal=True, window=window,
-                              block_kv=cfg.block_kv)
+    out = L.attend(q, k, v, cfg, window=window)
     h = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return h, L.attn_make_cache_from_prefill(cfg, k, v, window=window,
                                              capacity=capacity)

@@ -729,6 +729,70 @@ def test_smoke_lm_on_card_flash_kernel_matches_chunked(arch):
     torch.testing.assert_close(logits[0], logits[1], rtol=1e-5, atol=1e-5)
 
 
+# largest ||Δ|| / ||ref|| of a sequence's last logits, and of a cache
+# leaf, between prefill through the bf16 flash kernel and through
+# chunked_attention at four granite layers (read on an H100: PERF.md)
+PREFILL_LOGITS_REL = 2e-2
+PREFILL_CACHE_REL = 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixer,window", [("attn", None), ("swa", 256)])
+def test_granite_prefill_on_card_attends_through_the_flash_kernel(mixer,
+                                                                  window):
+    """granite-moe-3b-a800m at its widths (24/8 heads, hd 64) in bf16,
+    four layers, B=2, S=1024, plain causal and with a 256-token window:
+    prefill with `use_pallas_attn` launches the bf16 tensor-core kernel
+    once a layer and none without; last logits and caches match the
+    flag-off prefill (chunked_attention), the first layer's caches bit
+    for bit."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch import tracing
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, registry
+    from repro_torch.models.config import Stack
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers, B, S = 4, 2, 1024
+    cfg = dataclasses.replace(
+        registry.get_config("granite-moe-3b-a800m"),
+        stacks=(Stack((f"{mixer}+moe",), layers),),
+        sliding_window=window or 4096)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    out = {}
+    for flag in (True, False):
+        c = dataclasses.replace(cfg, use_pallas_attn=flag)
+        before = fa.launches_tc
+        tracing.start()
+        with torch.inference_mode():
+            out[flag] = lm.prefill_step_fn(c, capacity=S)(
+                params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        _, counters = tracing.stop()
+        assert fa.launches_tc - before == (layers if flag else 0)
+        name = "attn.kernel_calls" if flag else "attn.chunked_calls"
+        assert counters[name] == layers
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    (got, got_c), (want, want_c) = out[True], out[False]
+    assert max(rel(got[i, -1], want[i, -1]) for i in range(B)) \
+        <= PREFILL_LOGITS_REL
+    (first,), (ref,) = got_c[0], want_c[0]
+    for key in ("k", "v", "k_pos"):
+        assert torch.equal(first[key][0], ref[key][0]), key
+        assert first[key].shape == ref[key].shape
+    assert torch.equal(first["k_pos"], ref["k_pos"])
+    assert max(rel(first[k][i], ref[k][i]) for k in ("k", "v")
+               for i in range(layers)) <= PREFILL_CACHE_REL
+
+
 # --------------------------------------------------------------- training
 def _train_setup(layout, ckpt_dir=""):
     from repro_torch.core.model import CostModelConfig

@@ -136,6 +136,36 @@ def test_prefill_and_decode_match_reference(case):
             _close(a, b)
 
 
+def test_prefill_with_the_flag_matches_reference(case):
+    """With `use_pallas_attn` the port prefills through the flash kernel
+    (its plain version here), where the reference keeps
+    `chunked_attention`: the last prompt position's logits against the
+    reference's flag-on forward over the same prefix (the Pallas kernel),
+    the caches against the reference's prefill at TOL (the two
+    frameworks' projections sum in other orders, so no layer is equal bit
+    for bit), the first layer's against the port's flag-off prefill bit
+    for bit (its keys and values come before any attention)."""
+    arch, params, tokens, ref = case
+    cfg = registry.get_smoke_config(arch)
+    prompt = {"tokens": tokens[:, :S - 1]}
+    p_logits, cache = lm.prefill_step_fn(
+        dataclasses.replace(cfg, use_pallas_attn=True), capacity=S)(
+            params, prompt)
+    _, own_cache = lm.prefill_step_fn(cfg, capacity=S)(params, prompt)
+    want_logits, _ = ref[True]
+    _close(p_logits, want_logits[:, S - 2:S - 1])
+    _, want_cache = ref["prefill"]
+    got, want = _cache_leaves(cache), _cache_leaves(want_cache)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b), (_, c) in zip(got, want, _cache_leaves(own_cache)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert np.array_equal(a[0], c[0]), name
+        if name.endswith("k_pos"):
+            assert np.array_equal(a, b), name
+        else:
+            _close(a, b)
+
+
 def test_prefill_decode_matches_own_forward(case):
     """Prefill on S-1 tokens + decode of token S-1 gives the forward's
     last-position logits (the reference's own check,

@@ -195,8 +195,11 @@ def test_model_step_span_tree_counters_and_bit_identical_outputs():
         cap = L.moe_capacity(xf.shape[0], mc)
         _, slot_sorted, keep = L.moe_dispatch(ids, mc.num_experts, cap)
         hit += len(set((slot_sorted[keep] // cap).tolist()))
+    # prefill's two MLA layers attend through chunked_attention; decode's
+    # absorbed attention does not
     assert counters == {"moe.experts_hit": hit,
-                        "moe.experts_read": mc.num_experts * (1 + STEPS)}
+                        "moe.experts_read": mc.num_experts * (1 + STEPS),
+                        "attn.chunked_calls": 2}
     # decode's B·K = 4 pairs reach at most 4 of the 8 experts
     assert hit < mc.num_experts * (1 + STEPS)
 
