@@ -3,10 +3,14 @@
 Port of `repro.launch.serve`, for the architectures whose prompts are
 tokens: h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b, granite-moe-3b-a800m,
 deepseek-v3-671b, mamba2-2.7b and recurrentgemma-9b. The loop feeds
-prompts as `{"tokens"}` alone, as the reference's does; musicgen-large
-(frame embeddings) and llava-next-34b (a patch prefix) need more, and
-are refused with a ValueError that names the missing input (the
-reference fails there with a KeyError).
+prompts as `{"tokens"}` alone, as the reference's does; the zoo's
+musicgen-large (frame embeddings) and llava-next-34b (a patch prefix)
+need more, and are refused with a ValueError that names the missing
+input (the reference fails there with a KeyError). `serve_loop` also
+serves a config with codebooks and cross-attention (MusicGen's decoder
+as published, built from its own config rather than the registry):
+delayed codes [B, K, P] and text states in, K codes a step out, under
+the delay pattern (`models.lm.delay_codes`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
       --smoke --device cpu --batch 4 --prompt-len 32 --decode-steps 16
@@ -60,7 +64,8 @@ def prompts(cfg, batch: int, prompt_len: int, seed: int,
 
 
 def check_token_prompts(cfg) -> None:
-    """Raise ValueError for an arch whose prefill needs more than tokens."""
+    """Raise ValueError for an arch whose prefill needs more than tokens
+    (or, with codebooks, codes and text states)."""
     need = ("embeddings (frame embeddings)" if cfg.embed_inputs
             else "patch_embeds (the image's patch prefix)"
             if cfg.num_patch_tokens else None)
@@ -69,43 +74,62 @@ def check_token_prompts(cfg) -> None:
                          "serve loop feeds token prompts only")
 
 
+def _pick(last: torch.Tensor, temperature: float, generator) -> torch.Tensor:
+    """The next ids from logits [..., V]: greedy at temperature 0, else
+    sampled from `generator`; shape [...]."""
+    if temperature <= 0:
+        return torch.argmax(last, dim=-1)
+    probs = torch.softmax(last.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator) \
+        .view(probs.shape[:-1])
+
+
 @torch.inference_mode()
 def serve_loop(params, cfg, tokens: torch.Tensor, *, decode_steps: int,
                temperature: float = 0.0,
-               generator: torch.Generator | None = None) -> dict:
+               generator: torch.Generator | None = None,
+               text: torch.Tensor | None = None) -> dict:
     """Prefill `tokens` [B, P], then decode `decode_steps` tokens, greedy
     (temperature 0) or sampled from `generator`. Returns the generated
     ids [B, decode_steps] and the prefill and decode wall seconds (the
-    device synchronised at the end of each)."""
+    device synchronised at the end of each). With codebooks, `tokens` is
+    a delayed prompt of codes [B, K, P] (position 0 the start, all the
+    pad id `cfg.vocab_size`), `text` the conditioning states [B, T,
+    cfg.cross_attn_dim], and each step gives K codes under the delay
+    pattern, the clip ending with the last step (P + decode_steps - K
+    frames): the generated codes are [B, K, decode_steps]."""
     from repro_torch.models import lm
 
     check_token_prompts(cfg)
-    B, P = tokens.shape
+    K = cfg.num_codebooks
+    P = tokens.shape[-1]
+    batch = {"codes": tokens, "text": text} if K else {"tokens": tokens}
+    if cfg.cross_attn_dim and text is None:
+        raise ValueError(f"{cfg.name}: prefill needs the text states")
+    frames = P + decode_steps - K
     capacity = P + decode_steps
     prefill = lm.prefill_step_fn(cfg, capacity=capacity)
     decode = lm.decode_step_fn(cfg)
     dev = tokens.device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
     out = []
     t0 = time.perf_counter()
     for t in range(P, capacity):
-        last = logits[:, -1, :].float()
-        if temperature > 0:
-            probs = torch.softmax(last / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)
-        else:
-            nxt = torch.argmax(last, dim=-1, keepdim=True)
+        nxt = _pick(logits[:, -1], temperature, generator)
+        if K:
+            nxt = lm.delay_codes(nxt, t, frames, cfg.vocab_size)
         out.append(nxt)
-        logits, cache = decode(params, cache, nxt, t)
+        logits, cache = decode(params, cache, nxt[..., None], t)
     _sync(dev)
     decode_s = time.perf_counter() - t0
-    generated = (torch.cat(out, dim=1) if out
-                 else tokens.new_zeros((B, 0)))
+    generated = (torch.stack(out, dim=-1) if out
+                 else tokens.new_zeros(tokens.shape[:-1] + (0,)))
     return {"tokens": generated, "prefill_s": prefill_s,
             "decode_s": decode_s}
 

@@ -88,6 +88,21 @@ class ModelConfig:
     # modality frontend stub: inputs are precomputed embeddings
     embed_inputs: bool = False            # musicgen (frame embeddings)
     num_patch_tokens: int = 0             # llava (patch embeddings prefix)
+    # the port's own fields (the JAX package has none of them); each
+    # default is what every zoo config runs
+    norm: str = "rms"                     # rms | layer (LayerNorm with a
+    #   bias) for the blocks' and the final norm
+    mlp: str = "swiglu"                   # swiglu | gelu (two matrices,
+    #   exact GELU, no gate)
+    positions: str = "rope"               # rope | sinusoidal (added to the
+    #   input embeddings, cos half then sin half; no rope in attention)
+    num_codebooks: int = 0                # > 0: inputs are codes [B, K, S]
+    #   of K codebooks of vocab_size codes, summed over K embeddings of
+    #   vocab_size + 1 rows (the last id pads and starts), and each
+    #   position gives K rows of logits (K untied heads)
+    cross_attn_dim: int = 0               # > 0: every block attends, after
+    #   its self-attention, to a text sequence of this width projected to
+    #   d_model (MusicGen's conditioning); its K/V are cached at prefill
     # numerics / training
     dtype: str = "bfloat16"
     remat: str = "full"                   # none | full | dots

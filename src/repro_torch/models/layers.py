@@ -1,7 +1,10 @@
 """Layers of the LM zoo: RMSNorm, rotary embedding, GQA attention
 (full-causal or sliding-window, optional qk-norm), DeepSeek-V3's
 multi-head latent attention (MLA), the SwiGLU MLP, the token-choice MoE
-ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU mixer.
+ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU mixer; and, for
+MusicGen's decoder (the port's own, not in the reference), LayerNorm,
+sinusoidal positions, the two-matrix GELU MLP and cross-attention to a
+conditioning sequence, whose keys and values prefill caches once.
 
 Port of `repro.models.layers`. Parameters are dicts
 of tensors laid out as the reference's pytrees. GQA and sliding-window
@@ -69,6 +72,33 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"]).to(x.dtype)
 
 
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """`nn.LayerNorm` with weight `scale` and `bias`, in f32."""
+    xf = x.float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def norm_init(cfg: ModelConfig, lead: tuple = (), device="cpu") -> dict:
+    """A block's or the final norm: RMSNorm's scale, and LayerNorm's
+    bias beside it with `cfg.norm == "layer"`."""
+    p = _norm_init(cfg.d_model, lead, device)
+    if cfg.norm == "layer":
+        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=torch.float32,
+                                device=device)
+    return p
+
+
+def norm(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm (`cfg.norm`) of a block or of the final states."""
+    if cfg.norm == "layer":
+        return layernorm(params, x, cfg.norm_eps)
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
 def _winit(generator, shape, dtype, scale: float = 0.02,
            device="cpu") -> torch.Tensor:
     """N(0, 1) · scale drawn in f32 from `generator` (on its own device)
@@ -99,6 +129,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.split(x.float(), half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """[S, dim] f32 sinusoidal position embeddings of `positions` [S]
+    (MusicGen's): cos half then sin half, frequency i of the `dim // 2`
+    being 10000^(-i / (dim // 2 - 1))."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                      * -(math.log(10000.0) / (half - 1)))
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
 # ----------------------------------------------------------------------------
@@ -188,10 +230,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, k_pos: torch.Tensor, pos: int, *,
-                    window: int | None = None) -> torch.Tensor:
+                    v_cache: torch.Tensor, k_pos: torch.Tensor | None,
+                    pos: int, *, window: int | None = None) -> torch.Tensor:
     """Decode: q [B,1,H,hd] over cache [B,C,KH,hd]; k_pos [B,C] absolute
-    positions of cached keys (-1 = empty slot)."""
+    positions of cached keys (-1 = empty slot), or None where every
+    slot is seen (a cross-attention cache)."""
     with tracing.span("attn.core"):
         return _cache_attention(q, k_cache, v_cache, k_pos, pos,
                                 window=window)
@@ -204,10 +247,11 @@ def _cache_attention(q, k_cache, v_cache, k_pos, pos, *, window):
     scale = 1.0 / math.sqrt(hd)
     qh = (q * _scalar(scale, q)).reshape(B, KH, rep, hd)
     s = torch.einsum("bgrd,btgd->bgrt", qh.float(), k_cache.float())
-    valid = (k_pos >= 0) & (k_pos <= pos)
-    if window is not None:
-        valid = valid & (pos - k_pos < window)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if k_pos is not None:
+        valid = (k_pos >= 0) & (k_pos <= pos)
+        if window is not None:
+            valid = valid & (pos - k_pos < window)
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrt,btgd->bgrd", p, v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
@@ -255,8 +299,9 @@ def attn_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.positions == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -326,20 +371,63 @@ def attn_make_cache_from_prefill(cfg: ModelConfig, k: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
-# SwiGLU MLP
+# Cross-attention to a conditioning sequence (`cfg.cross_attn_dim`)
+# ----------------------------------------------------------------------------
+def xattn_init(generator, cfg: ModelConfig, lead: tuple = (),
+               device="cpu") -> dict:
+    """One block's cross-attention: `num_heads` query and key/value heads
+    (MHA) over the projected conditioning states, no bias."""
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    dt = _dt(cfg)
+    return {
+        "wq": _winit(generator, lead + (D, H, hd), dt, device=device),
+        "wk": _winit(generator, lead + (D, H, hd), dt, device=device),
+        "wv": _winit(generator, lead + (D, H, hd), dt, device=device),
+        "wo": _winit(generator, lead + (H, hd, D), dt,
+                     scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1)),
+                     device=device),
+    }
+
+
+def xattn_cache(params: dict, src: torch.Tensor) -> dict:
+    """The block's cross cache from the projected conditioning states src
+    [B,T,D]: keys `xk` and values `xv` [B,T,H,hd], built once a prefill
+    (span `xattn.kv`, counter `xattn.kv_built`) and only read by decode."""
+    with tracing.span("xattn.kv"):
+        tracing.count("xattn.kv_built", 1)
+        return {"xk": torch.einsum("btd,dhk->bthk", src, params["wk"]),
+                "xv": torch.einsum("btd,dhk->bthk", src, params["wv"])}
+
+
+def xattn_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                cache: dict, *, decode: bool) -> torch.Tensor:
+    """x [B,S,D] (normed) attends to every position of the cross cache,
+    unmasked: prefill through `chunked_attention`, decode through
+    `cache_attention`."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if decode:
+        out = cache_attention(q, cache["xk"], cache["xv"], None, 0)
+    else:
+        out = chunked_attention(q, cache["xk"], cache["xv"], causal=False,
+                                block_kv=cfg.block_kv)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+# ----------------------------------------------------------------------------
+# SwiGLU MLP, and the two-matrix GELU MLP (`cfg.mlp == "gelu"`)
 # ----------------------------------------------------------------------------
 def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None,
              lead: tuple = (), device="cpu") -> dict:
     D = cfg.d_model
     F = d_ff or cfg.d_ff
     dt = _dt(cfg)
-    return {
-        "w_gate": _winit(generator, lead + (D, F), dt, device=device),
-        "w_up": _winit(generator, lead + (D, F), dt, device=device),
-        "w_down": _winit(generator, lead + (F, D), dt,
+    p = {} if cfg.mlp == "gelu" else {
+        "w_gate": _winit(generator, lead + (D, F), dt, device=device)}
+    p["w_up"] = _winit(generator, lead + (D, F), dt, device=device)
+    p["w_down"] = _winit(generator, lead + (F, D), dt,
                          scale=0.02 / math.sqrt(2 * max(cfg.num_layers, 1)),
-                         device=device),
-    }
+                         device=device)
+    return p
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -349,6 +437,11 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = _silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+def gelu_mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """W2 · GELU(W1 · x), the exact (erf) GELU, no gate and no bias."""
+    return F.gelu(x @ params["w_up"]) @ params["w_down"]
 
 
 # ----------------------------------------------------------------------------

@@ -4,7 +4,13 @@ and `none`, with the frame-embedding (`cfg.embed_inputs`) and
 patch-prefix (`cfg.num_patch_tokens`) front ends. It runs all ten archs
 of the zoo: h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b,
 granite-moe-3b-a800m, deepseek-v3-671b, musicgen-large, llava-next-34b,
-mamba2-2.7b and recurrentgemma-9b.
+mamba2-2.7b and recurrentgemma-9b. Beyond the reference, the port's own
+config fields run MusicGen's decoder as published (prefill and decode):
+LayerNorm blocks (`cfg.norm`), the GELU MLP (`cfg.mlp`), sinusoidal
+positions (`cfg.positions`), K codebooks in and K heads out
+(`cfg.num_codebooks`; `delay_codes` is its delay pattern) and
+cross-attention to text states (`cfg.cross_attn_dim`: `enc_to_dec`
+projects them, each block caches their keys and values at prefill).
 
 Parameters keep the reference's tree: `embed`, `final_norm`, `lm_head`
 (unless tied) and `stacks`, a list with one entry per stack, each a
@@ -106,7 +112,7 @@ def _stack(trees: list):
 def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
                device="cpu") -> dict:
     mixer, ffn = _check_elem(elem)
-    p: dict[str, Any] = {"norm1": L._norm_init(cfg.d_model, lead, device)}
+    p: dict[str, Any] = {"norm1": L.norm_init(cfg, lead, device)}
     if mixer == "mla":
         p["mixer"] = L.mla_init(generator, cfg, lead, device)
     elif mixer == "ssd":
@@ -115,8 +121,11 @@ def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
         p["mixer"] = L.rglru_init(generator, cfg, lead, device)
     else:
         p["mixer"] = L.attn_init(generator, cfg, lead, device)
+    if cfg.cross_attn_dim:
+        p["norm_x"] = L.norm_init(cfg, lead, device)
+        p["xattn"] = L.xattn_init(generator, cfg, lead, device)
     if ffn != "none":
-        p["norm2"] = L._norm_init(cfg.d_model, lead, device)
+        p["norm2"] = L.norm_init(cfg, lead, device)
         p["ffn"] = (L.mlp_init(generator, cfg, lead=lead, device=device)
                     if ffn == "mlp"
                     else L.moe_init(generator, cfg, lead, device))
@@ -127,16 +136,36 @@ def _ffn(params: dict, cfg: ModelConfig, ffn: str,
          x: torch.Tensor) -> torch.Tensor:
     if ffn != "none":
         with tracing.span(_FFN_SPAN[ffn]):
-            h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-            x = x + (L.mlp_apply(params["ffn"], h) if ffn == "mlp"
-                     else L.moe_apply(params["ffn"], cfg, h))
+            h = L.norm(params["norm2"], cfg, x)
+            if ffn == "moe":
+                x = x + L.moe_apply(params["ffn"], cfg, h)
+            elif cfg.mlp == "gelu":
+                x = x + L.gelu_mlp_apply(params["ffn"], h)
+            else:
+                x = x + L.mlp_apply(params["ffn"], h)
     return x
+
+
+def _xattn(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+           src: torch.Tensor | None) -> torch.Tensor:
+    """x plus the block's cross-attention (`cfg.cross_attn_dim`), under
+    the span `mixer.xattn`. With `src`, the projected conditioning
+    states of a prefill, it first builds the block's cross cache into
+    `cache`; decode passes None and reads the cache prefill built."""
+    if not cfg.cross_attn_dim:
+        return x
+    with tracing.span("mixer.xattn"):
+        if src is not None:
+            cache.update(L.xattn_cache(params["xattn"], src))
+        h = L.norm(params["norm_x"], cfg, x)
+        return x + L.xattn_apply(params["xattn"], cfg, h, cache,
+                                 decode=src is None)
 
 
 def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
                       x: torch.Tensor) -> torch.Tensor:
     mixer, ffn = _check_elem(elem)
-    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h = L.norm(params["norm1"], cfg, x)
     if mixer == "mla":
         h = L.mla_apply_train(params["mixer"], cfg, h)
     elif mixer == "ssd":
@@ -169,7 +198,7 @@ def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
 def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
                        x: torch.Tensor, cache: dict, pos: int) -> tuple:
     mixer, ffn = _check_elem(elem)
-    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h = L.norm(params["norm1"], cfg, x)
     with tracing.span(_MIXER_SPAN[mixer]):
         if mixer == "mla":
             h, new_cache = L.mla_apply_decode(params["mixer"], cfg, h, cache,
@@ -184,20 +213,25 @@ def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
             h, new_cache = L.attn_apply_decode(
                 params["mixer"], cfg, h, cache, pos,
                 window=_mixer_window(cfg, mixer))
-    return _ffn(params, cfg, ffn, x + h), new_cache
+    x = _xattn(params, cfg, x + h, cache, None)
+    return _ffn(params, cfg, ffn, x), new_cache
 
 
 def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
-                        x: torch.Tensor, capacity: int) -> tuple:
+                        x: torch.Tensor, capacity: int,
+                        xsrc: torch.Tensor | None = None) -> tuple:
     """Like train, but also returns the decode cache for this layer.
     GQA and sliding-window layers attend as in train (`layers.attend`:
     the flash kernel with `use_pallas_attn`, where the reference keeps
-    `chunked_attention`); MLA attends with `chunked_attention`."""
+    `chunked_attention`); MLA attends with `chunked_attention`. With
+    `cfg.cross_attn_dim`, `xsrc` is the projected conditioning states
+    [B,T,D], whose keys and values join the cache (`xk`, `xv`)."""
     mixer, ffn = _check_elem(elem)
-    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h = L.norm(params["norm1"], cfg, x)
     with tracing.span(_MIXER_SPAN[mixer]):
         h, cache = _mixer_prefill(params["mixer"], cfg, mixer, h, capacity)
-    return _ffn(params, cfg, ffn, x + h), cache
+    x = _xattn(params, cfg, x + h, cache, xsrc)
+    return _ffn(params, cfg, ffn, x), cache
 
 
 def _mixer_prefill(params: dict, cfg: ModelConfig, mixer: str,
@@ -244,15 +278,27 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
         for elem in stack.pattern:
             _check_elem(elem)
     dt = L._dt(cfg)
+    K = cfg.num_codebooks
+    if K and cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: codebook heads are not tied")
+    # K codebooks: K tables of vocab_size + 1 rows (the pad/start id) and
+    # K heads, stacked
+    embed = (K, cfg.vocab_size + 1, cfg.d_model) if K \
+        else (cfg.vocab_size, cfg.d_model)
     params: dict[str, Any] = {
-        "embed": L._winit(generator, (cfg.vocab_size, cfg.d_model), dt,
-                          device=dev),
-        "final_norm": L._norm_init(cfg.d_model, device=dev),
+        "embed": L._winit(generator, embed, dt, device=dev),
+        "final_norm": L.norm_init(cfg, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._winit(generator, (cfg.d_model,
-                                                 cfg.vocab_size), dt,
-                                     device=dev)
+        head = (cfg.d_model, cfg.vocab_size)
+        params["lm_head"] = L._winit(generator, (K,) + head if K else head,
+                                     dt, device=dev)
+    if cfg.cross_attn_dim:
+        # the conditioning states' projection to d_model (with a bias)
+        params["enc_to_dec"] = {
+            "w": L._winit(generator, (cfg.cross_attn_dim, cfg.d_model), dt,
+                          device=dev),
+            "b": torch.zeros(cfg.d_model, dtype=dt, device=dev)}
     params["stacks"] = [
         tuple(block_init(generator, cfg, elem, (stack.repeats,), dev)
               for elem in stack.pattern)
@@ -270,19 +316,44 @@ def init_abstract(cfg: ModelConfig) -> dict:
 # ----------------------------------------------------------------------------
 # Forward (training / prefill trunk)
 # ----------------------------------------------------------------------------
-def _embed_tokens(params, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    tok = params["embed"][tokens.long()]
-    return tok * L._scalar(math.sqrt(cfg.d_model), tok)
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  start: int = 0) -> torch.Tensor:
+    """Token ids [B,S] -> the scaled embeddings; codes [B,K,S] with
+    `cfg.num_codebooks` -> the sum of the K codebooks' embeddings, in
+    f32, rounded once to the model's dtype. Sinusoidal positions
+    (`cfg.positions`), from position `start`, join that f32 sum."""
+    if not cfg.num_codebooks:
+        tok = params["embed"][tokens.long()]
+        tok = tok * L._scalar(math.sqrt(cfg.d_model), tok)
+        if cfg.positions != "sinusoidal":
+            return tok
+        x = tok.float()
+    else:
+        x = sum(params["embed"][k][tokens[:, k].long()].float()
+                for k in range(cfg.num_codebooks))
+    pos = start + torch.arange(tokens.shape[-1], device=tokens.device)
+    return (x + L.sinusoid(pos, cfg.d_model)).to(L._dt(cfg))
+
+
+def _cross_source(params, cfg: ModelConfig,
+                 text: torch.Tensor) -> torch.Tensor:
+    """The conditioning states [B,T,cross_attn_dim] projected to d_model
+    in the model's dtype (MusicGen's `enc_to_dec_proj`)."""
+    p = params["enc_to_dec"]
+    return text.to(p["w"].dtype) @ p["w"] + p["b"]
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """The trunk's input [B,S,D]: musicgen's frame embeddings
-    (`batch["embeddings"]`) in the model's dtype; else the scaled token
+    (`batch["embeddings"]`) in the model's dtype; with codebooks the
+    summed embeddings of `batch["codes"]` [B,K,S]; else the scaled token
     embeddings, after llava's patch embeddings (`batch["patch_embeds"]`,
     [B,P,D], cast to the tokens' dtype) where the config has them."""
     if cfg.embed_inputs:
         return constrain(batch["embeddings"].to(L._dt(cfg)), "act_btd")
+    if cfg.num_codebooks:
+        return constrain(_embed_tokens(params, cfg, batch["codes"]),
+                         "act_btd")
     tok = _embed_tokens(params, cfg, batch["tokens"])
     if cfg.num_patch_tokens:
         tok = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
@@ -291,7 +362,12 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: [B,S,D] embeddings -> final hidden states. Under grad mode each
-    layer is rematerialized unless `cfg.remat == "none"`."""
+    layer is rematerialized unless `cfg.remat == "none"`. Configs with
+    cross-attention run prefill and decode only."""
+    if cfg.cross_attn_dim:
+        raise NotImplementedError(f"{cfg.name}: cross-attention blocks run "
+                                  "through prefill_step_fn and "
+                                  "decode_step_fn only")
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for stack, elem_params in zip(cfg.stacks, params["stacks"]):
         for layer in hlo_import.scan(elem_params, stack.repeats):
@@ -301,10 +377,13 @@ def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                                    use_reentrant=False)
                 else:
                     x = block_apply_train(p, cfg, elem, x)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.norm(params["final_norm"], cfg, x)
 
 
 def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """h [B,S,D] -> logits [B,S,V], or [B,S,K,V] with K codebooks."""
+    if cfg.num_codebooks:
+        return torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["lm_head"]
@@ -449,8 +528,10 @@ def prefill_step_fn(cfg: ModelConfig, capacity: int):
             return _prefill(params, batch)
 
     def _prefill(params, batch):
-        with tracing.span("embed"):
+        with _io_span("embed", cfg):
             x = _embed_inputs(params, cfg, batch)
+        xsrc = _cross_source(params, cfg, batch["text"]) \
+            if cfg.cross_attn_dim else None
         caches = []
         for stack, elem_params in zip(cfg.stacks, params["stacks"]):
             per_layer = []
@@ -459,21 +540,33 @@ def prefill_step_fn(cfg: ModelConfig, capacity: int):
                 for elem, p in zip(stack.pattern, elem_params):
                     with tracing.span("block"):
                         x, c = block_apply_prefill(_index(p, i), cfg, elem,
-                                                   x, capacity)
+                                                   x, capacity, xsrc)
                     layer_caches.append(c)
                 per_layer.append(layer_caches)
             caches.append(tuple(_stack([lc[e] for lc in per_layer])
                                 for e in range(len(stack.pattern))))
-        with tracing.span("logits"):
-            h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        with _io_span("logits", cfg):
+            h = L.norm(params["final_norm"], cfg, x)
             logits = logits_fn(params, cfg, h[:, -1:, :])
         return logits, caches
 
     return prefill
 
 
+def _io_span(name: str, cfg: ModelConfig):
+    """The span `embed` or `logits`, with the attribute `codebooks` where
+    the config has them."""
+    s = tracing.span(name)
+    if cfg.num_codebooks and tracing.recording():
+        s.attrs["codebooks"] = cfg.num_codebooks
+    return s
+
+
 def _prefill_attrs(cfg: ModelConfig, batch: dict) -> dict:
     """`lm.prefill`'s attributes: the batch and the sequence length."""
+    if cfg.num_codebooks:
+        return {"batch": batch["codes"].shape[0],
+                "seq": batch["codes"].shape[-1]}
     x = batch["embeddings"] if cfg.embed_inputs else batch["tokens"]
     return {"batch": x.shape[0],
             "seq": x.shape[1] + (cfg.num_patch_tokens or 0)}
@@ -481,15 +574,16 @@ def _prefill_attrs(cfg: ModelConfig, batch: dict) -> dict:
 
 def decode_step_fn(cfg: ModelConfig):
     def decode(params, caches, tokens, pos):
-        """tokens: [B,1] int; pos: int, the tokens' position. Every arch
-        embeds tokens here, the front-end ones too. Updates `caches` in
-        place; returns (logits [B,1,V], caches)."""
+        """tokens: [B,1] int, or codes [B,K,1] with K codebooks; pos: int,
+        the tokens' position. Every arch embeds tokens here, the
+        front-end ones too. Updates `caches` in place (a cross cache is
+        only read); returns (logits [B,1,V] or [B,1,K,V], caches)."""
         pos = int(pos)
         with tracing.span("lm.decode") as s:
             if s is not None:
                 s.attrs.update(batch=tokens.shape[0], pos=pos)
-            with tracing.span("embed"):
-                x = _embed_tokens(params, cfg, tokens)
+            with _io_span("embed", cfg):
+                x = _embed_tokens(params, cfg, tokens, pos)
             for stack, elem_params, stack_cache in zip(
                     cfg.stacks, params["stacks"], caches):
                 for i in range(stack.repeats):
@@ -499,12 +593,25 @@ def decode_step_fn(cfg: ModelConfig):
                             x, _ = block_apply_decode(_index(p, i), cfg,
                                                       elem, x, _index(c, i),
                                                       pos)
-            with tracing.span("logits"):
-                h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            with _io_span("logits", cfg):
+                h = L.norm(params["final_norm"], cfg, x)
                 logits = logits_fn(params, cfg, h)
         return logits, caches
 
     return decode
+
+
+def delay_codes(codes: torch.Tensor, pos: int, frames: int,
+                pad: int) -> torch.Tensor:
+    """MusicGen's delay pattern on the codes [B,K] picked for position
+    `pos` of a delayed sequence (position 0 the start, all `pad`):
+    codebook k runs k positions behind codebook 0, so it gives `pad`
+    until its first frame (pos <= k) and again after its last of
+    `frames` (pos > frames + k). A clip of n frames fills positions 1 to
+    n + K - 1. On the device, with no host sync."""
+    k = torch.arange(codes.shape[1], device=codes.device)
+    free = (k < pos) & (pos <= frames + k)
+    return torch.where(free, codes, pad)
 
 
 def param_count(params) -> int:

@@ -240,9 +240,19 @@ def test_lm_from_jax_params_checks_shapes():
 @pytest.mark.parametrize("size", ["full", "smoke"])
 @pytest.mark.parametrize("arch", jreg.list_archs())
 def test_configs_match_reference(arch, size):
+    """Every key of the reference's config with its value, and each of
+    the port's own fields (MusicGen's decoder as published) at the
+    default that runs what the reference runs."""
     get = {"full": (jreg.get_config, registry.get_config),
            "smoke": (jreg.get_smoke_config, registry.get_smoke_config)}[size]
-    assert get[1](arch).to_dict() == get[0](arch).to_dict()
+    got, want = get[1](arch).to_dict(), get[0](arch).to_dict()
+    assert {k: got[k] for k in want if k in got} == want
+    assert {k: v for k, v in got.items() if k not in want} == PORT_ONLY
+
+
+# the port's own config fields and their defaults
+PORT_ONLY = {"norm": "rms", "mlp": "swiglu", "positions": "rope",
+             "num_codebooks": 0, "cross_attn_dim": 0}
 
 
 def test_registry_lists_the_same_archs():
