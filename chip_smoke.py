@@ -79,7 +79,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
              (window off by one, 64 keys left out) must fail that check;
              `ssd_scan` at
              Mamba2-2.7b's full shapes (B=2, nc=32, H=80, N=128, P=64),
-             bit-exact.
+             bit-exact; `decode_attention` (bf16) at musicgen-large's
+             decode step (B=64, 32/32 heads, hd 64: the self cache of 504
+             slots at position 250, the cross cache of 64 text keys), at
+             granite-moe-3b-a800m's batch-4 decode (24/8 heads, a
+             4096-slot cache at position 2047, split over blocks), at the
+             serve loop's shapes of 10 and 20 (batch 4, 576 slots,
+             position 544: h2o-danube-3-4b's 32/8 heads at hd 120 and
+             window 4096, recurrentgemma-9b's 16/1 at hd 256 and window
+             2048) and at recurrentgemma's ring of 2048 past its wrap,
+             held within one bf16 ulp of the output's largest element and
+             timed beside its bytes' bound, the plain version and
+             PyTorch's scaled_dot_product_attention over the same slots.
 9. lm-forward — the full h2o-danube-3-4b (24 layers, bf16, random
              weights from seed 0) scores 2 x 8192 tokens through
              `loss_fn` with the flash kernel (24 launches, all of the
@@ -93,7 +104,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
 10. lm-serve — the port's serve loop (`repro_torch.launch.serve`) on the
              same model: batch 4, prompt 512, 64 greedy decode steps;
              prefill on 511 tokens + decode of token 512 agrees with the
-             forward's last-position logits.
+             forward's last-position logits; the loop's own
+             `decode_attention` call at position 544 is held against the
+             plain version on its inputs, as in every serve loop below.
 11. lm-forward-f32 — the same model in f32 (its seed-0 weights cast, the
              bf16 ones released): `loss_fn` over the same 2 x 8192 tokens
              with the flash kernel (24 launches of the split-TF32 kernel)
@@ -764,11 +777,12 @@ def check_segment_aggregate_i8(gen, replay, whole) -> dict:
 
 # --------------------------------------------------------------------- 4
 def _reset_launches() -> None:
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graph_aggregate as ga
     from repro_torch.kernels import segment_aggregate as sa
     from repro_torch.kernels import ssd_scan as ss
-    ga.launches = sa.launches = sa.launches_i8 = 0
+    ga.launches = sa.launches = sa.launches_i8 = dec.launches = 0
     fa.launches = fa.launches_tc = fa.launches_f32 = ss.launches = 0
     fa.launches_hd256 = fa.launches_hd256_f32 = 0
     for shape in fa.launches_sm90:
@@ -776,6 +790,7 @@ def _reset_launches() -> None:
 
 
 def _launches() -> dict:
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import graph_aggregate as ga
     from repro_torch.kernels import segment_aggregate as sa
@@ -788,7 +803,8 @@ def _launches() -> dict:
             "flash_attention_f32": fa.launches_f32,
             "flash_attention_hd256": fa.launches_hd256,
             "flash_attention_hd256_f32": fa.launches_hd256_f32,
-            "ssd_scan": ss.launches}
+            "ssd_scan": ss.launches,
+            "decode_attention": dec.launches}
 
 
 # the _launches() key of each flash route (kernels.flash_attention.ROUTES)
@@ -1210,6 +1226,21 @@ FLASH_ROW_CASES = {"layer": "flash_attention", "f32-layer":
                    "flash_attention_f32", "rg-layer": "flash_attention_hd256",
                    "rg-layer-f32": "flash_attention_hd256_f32"}
 SSD_SHAPE = (2, 32, 80, 128, 64)    # B, nc, H, N, P: Mamba2-2.7b, 8192 tokens
+# decode_attention checks (bf16): (label, B, H, KH, hd, C, pos, window);
+# pos None is a cross cache (no k_pos, every slot seen). The serve loop's
+# caches (`lm_serve`) hold SERVE_PROMPT + SERVE_STEPS slots (a window's
+# ring no longer than that); its decode reads them at SERVE_DECODE_POS.
+# rg-ring is recurrentgemma's ring of 2048 past its wrap.
+SERVE_DECODE_POS = SERVE_PROMPT + SERVE_STEPS // 2
+_SERVE_C = SERVE_PROMPT + SERVE_STEPS
+DECODE_CASES = (
+    ("musicgen-self", 64, 32, 32, 64, 504, 250, None),
+    ("musicgen-cross", 64, 32, 32, 64, 64, None, None),
+    ("granite-b4", 4, 24, 8, 64, 4096, 2047, None),
+    ("h2o-serve", SERVE_BATCH, 32, 8, 120, _SERVE_C, SERVE_DECODE_POS, 4096),
+    ("rg-serve", SERVE_BATCH, 16, 1, 256, _SERVE_C, SERVE_DECODE_POS, 2048),
+    ("rg-ring", SERVE_BATCH, 16, 1, 256, 2048, 3000, 2048))
+DECODE_ITERS = 50
 # flash_attention vs. its plain version, element by element:
 # |out - ref| <= rtol·|ref| + atol. Both take the same f32 arithmetic and
 # differ only in the order of the f32 sums (~1e-7 relative); in bf16 both
@@ -1472,6 +1503,115 @@ def check_ssd_scan() -> dict:
         "before chunk 0 exactly 0")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _decode_tol(ref) -> float:
+    """decode_attention's limit against its plain version: one bf16 ulp
+    of max|ref| in bf16 (both compute in f32 and round once; their sums
+    differ in order alone), 1e-5 of it in f32."""
+    import math
+
+    import torch
+    scale = float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        return 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return 1e-5 * scale
+
+
+def _ring_k_pos(B, C, pos, device):
+    """k_pos [B, C] of a cache that has seen positions 0..pos: slot s
+    holds the last position p <= pos with p % C == s (-1 where p < 0),
+    as a full cache (pos < C) and a ring write them."""
+    import torch
+    slots = torch.arange(C, device=device, dtype=torch.int32)
+    p = pos - torch.remainder(pos - slots, C)
+    return torch.where(p >= 0, p, -1)[None].expand(B, C).contiguous()
+
+
+def check_decode_attention() -> dict:
+    """Each DECODE_CASES case: kernel vs plain over the same cache, in
+    bf16, within `_decode_tol`, timed beside the bytes' bound (the n
+    slots read of K and V, k_pos, q and the output) and beside PyTorch's
+    scaled_dot_product_attention over the same n slots with the same
+    mask (the yardstick only; its mask is built outside the timing).
+    Returns the kernels-line rows by case label."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rows = {}
+    for label, B, H, KH, hd, C, pos, window in DECODE_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for shape in
+                   ((B, 1, H, hd), (B, C, KH, hd), (B, C, KH, hd)))
+        k_pos = (None if pos is None
+                 else _ring_k_pos(B, C, pos, DEVICE))
+        at = pos or 0
+        n = dec.read_slots(C, k_pos, at)
+        mask = None
+        if k_pos is not None:
+            kp = k_pos[:, :n]
+            mask = (kp >= 0) & (kp <= at)
+            if window is not None:
+                mask = mask & (at - kp < window)
+            mask = mask[:, None, None, :]
+        qt, kt, vt = (q.transpose(1, 2), k[:, :n].transpose(1, 2),
+                      v[:, :n].transpose(1, 2))
+
+        def run():
+            return dec.decode_attention(q, k, v, k_pos, at, window=window)
+
+        def plain():
+            return dec.decode_attention_plain(q, k, v, k_pos, at,
+                                              window=window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+        out, ref = run(), plain()
+        lib_err = float((library().transpose(1, 2).float()
+                         - ref.float()).abs().max())
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _decode_tol(ref)
+        splits, _ = dec.plan(B * KH, n, dec.tile_slots(hd, 2),
+                             dec._sm_count(0))
+        before = dec.launches
+        ms = time_ms(run, iters=DECODE_ITERS)
+        launched = (dec.launches - before) / (WARMUP + DECODE_ITERS)
+        plain_ms = time_ms(plain, warmup=1, iters=10)
+        library_ms = time_ms(library, iters=DECODE_ITERS)
+        (dev_ms, split), (dev_plain_ms, _) = (device_ms(run, DECODE_ITERS),
+                                              device_ms(plain, 10))
+        nbytes = (2 * B * n * KH * hd * 2 + 2 * B * H * hd * 2
+                  + (0 if k_pos is None else 4 * B * n))
+        flops = 4 * B * H * n * hd
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+        log(f"[zoo-kernels] decode_attention {label} B={B} H={H} KH={KH} "
+            f"hd={hd} C={C} pos={pos} window={window} bfloat16 "
+            f"(decode_attention.cu, {splits} split(s), {launched:g} "
+            f"launches a call): kernel {ms:.4f} ms call, "
+            f"{nbytes / ms / 1e6:.0f} GB/s, bound / call {b_ms / ms:.1%}, "
+            f"bound / device {b_ms / dev_ms:.1%}; max_abs_err={err:.3e} "
+            f"(limit one bf16 ulp of max|ref| "
+            f"{float(ref.float().abs().max()):.4f}: {tol:.3e}) "
+            f"kernel device {dev_ms:.4f} ms [{split}], plain "
+            f"{plain_ms:.4f} ms (device {dev_plain_ms:.4f}), SDPA "
+            f"{library_ms:.4f} ms (max|Δ| to plain {lib_err:.3e}), bound "
+            f"{b_ms:.4f} ms ({b_by}; {n} slots read, {nbytes} bytes, "
+            f"{flops:.4e} FLOP)")
+        if not (err <= tol and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"decode_attention {label}: max_abs_err "
+                                 f"{err} > {tol}")
+        if launched != 1 + (splits > 1):
+            raise AssertionError(f"decode_attention {label}: {launched} "
+                                 f"launches a call, {splits} splits")
+        rows[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": library_ms}
+        del q, k, v, k_pos, out, ref, mask, qt, kt, vt
+    return rows
 
 
 # --------------------------------------------------------------------- 9
@@ -1859,14 +1999,70 @@ def _moe_drops():
         layers.moe_apply = apply
 
 
-def lm_serve(cfg, params, tag="lm-serve") -> None:
+@contextlib.contextmanager
+def _decode_calls(pos):
+    """Within: the first `layers.cache_attention` call at position `pos`
+    of each distinct (q shape, cache shape, dtype, window, k_pos given)
+    keeps copies of its inputs and of the output it returned."""
+    from repro_torch.models import layers
+    fn = layers.decode_attention
+    calls = {}
+
+    def recording(q, k_cache, v_cache, k_pos, at, *, window=None):
+        out = fn(q, k_cache, v_cache, k_pos, at, window=window)
+        key = (tuple(q.shape), tuple(k_cache.shape), q.dtype, window,
+               k_pos is None)
+        if at == pos and key not in calls:
+            calls[key] = (q.clone(), k_cache.clone(), v_cache.clone(),
+                          None if k_pos is None else k_pos.clone(), window,
+                          out.clone())
+        return out
+    layers.decode_attention = recording
+    try:
+        yield calls
+    finally:
+        layers.decode_attention = fn
+
+
+def _hold_decode_calls(tag, calls, pos) -> float:
+    """Each call `_decode_calls` kept: the output the serve loop got from
+    the kernel against the plain version on the same inputs, within
+    `_decode_tol`. Returns the largest |Δ| (0.0 with no call)."""
+    from repro_torch.kernels import decode_attention as dec
+    worst = 0.0
+    for (qs, cs, dtype, window, _), (q, k, v, k_pos, _, out) in \
+            calls.items():
+        ref = dec.decode_attention_plain(q, k, v, k_pos, pos, window=window)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _decode_tol(ref)
+        n = dec.read_slots(cs[1], k_pos, pos)
+        splits, _ = dec.plan(cs[0] * cs[2], n,
+                             dec.tile_slots(cs[3], q.element_size()),
+                             dec._sm_count(0))
+        log(f"[{tag}] decode_attention on the serve loop's own call at "
+            f"position {pos}: q {list(qs)}, cache {list(cs)} {dtype}, "
+            f"window {window}, {'k_pos' if k_pos is not None else 'no k_pos'}"
+            f", {n} slots read, {splits} split(s): max_abs_err {err:.3e} "
+            f"against the plain version (limit {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{tag}: decode_attention's serve call "
+                                 f"{err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def lm_serve(cfg, params, tag="lm-serve") -> tuple[dict, float]:
     """The serve loop (batch SERVE_BATCH, prompt SERVE_PROMPT,
     SERVE_STEPS greedy steps) with its launches, one profiled decode
     step, and prefill on SERVE_PROMPT - 1 tokens + decode of the last
-    against the forward's last position. With MoE layers that check is
+    against the forward's last position. Each decode-attention call of
+    the loop at SERVE_DECODE_POS (one a cache shape) is held against the
+    plain version on its own inputs (`_hold_decode_calls`). With MoE
+    layers the decode vs forward check is
     made on the sequences that no drop at capacity reaches
     (`_clean_rows`: all of them where nothing is dropped) and fails if
-    there are none."""
+    there are none. Returns the serve loop's kernel launches
+    (`_launches`) and the largest |Δ| of its decode-attention calls."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1874,8 +2070,15 @@ def lm_serve(cfg, params, tag="lm-serve") -> None:
                            device=DEVICE)
     serve.serve_loop(params, cfg, tokens[:, :16], decode_steps=2)  # warm-up
     _reset_launches()
-    res = serve.serve_loop(params, cfg, tokens, decode_steps=SERVE_STEPS)
+    with _decode_calls(SERVE_DECODE_POS) as calls:
+        res = serve.serve_loop(params, cfg, tokens,
+                               decode_steps=SERVE_STEPS)
     launches = _launches()
+    if launches["decode_attention"] and not calls:
+        raise AssertionError(f"{tag}: decode_attention launched, but no "
+                             f"call at position {SERVE_DECODE_POS}")
+    decode_err = _hold_decode_calls(tag, calls, SERVE_DECODE_POS)
+    del calls
     toks = SERVE_BATCH * SERVE_STEPS
     gen = res["tokens"]
     log(f"[{tag}] {cfg.name} batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
@@ -1929,6 +2132,7 @@ def lm_serve(cfg, params, tag="lm-serve") -> None:
         step, full = step[rows], full[rows]
         what += f", sequences {rows}"
     _hold_decode(tag, cfg, step[:, 0], full, what)
+    return launches, decode_err
 
 
 def _clean_rows(cfg, tokens, n) -> list:
@@ -4450,11 +4654,17 @@ def main() -> int:
     flash = check_flash_attention()
     rows.update(flash)
     rows["ssd_scan"] = check_ssd_scan()
+    # decode_attention's row: h2o's serve shape, the serve loop's
+    # launches, and the worst |Δ| of that shape and the loop's own calls
+    rows["decode_attention"] = check_decode_attention()["h2o-serve"]
     with torch.inference_mode():
         cfg, params = _lm_model()
         # the main path's counts
         launches = lm_forward(cfg, params)[True]["launches"]
-        lm_serve(cfg, params)
+        served, decode_err = lm_serve(cfg, params)
+        row = rows["decode_attention"]
+        row["launches"] = served["decode_attention"]
+        row["max_abs_err"] = max(row["max_abs_err"], decode_err)
         # 11: the same model in f32, on the f32 route
         cfg32, params = as_f32(cfg, params)
         launches32 = lm_forward(cfg32, params,
@@ -4557,7 +4767,10 @@ def main() -> int:
             ("flash_attention_hd256_f32", "flash_attention_hd256_tf32",
              "src/repro/kernels/flash_attention/kernel.py:79"),
             ("ssd_scan", "ssd_scan",
-             "src/repro/kernels/ssd_scan/kernel.py:48")):
+             "src/repro/kernels/ssd_scan/kernel.py:48"),
+            ("decode_attention", "decode_attention",
+             "none: src/repro/models/layers.py cache_attention is plain "
+             "jnp")):
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",

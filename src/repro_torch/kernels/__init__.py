@@ -8,8 +8,14 @@ reference, each beside its plain PyTorch version:
                       split TF32 (csrc/flash_attention_tf32.cu)
   ssd_scan          — Mamba2 inter-chunk state recurrence (csrc/ssd_scan.cu)
 
+and one that replaces no TPU kernel (the reference's decode attention is
+plain jnp):
+
+  decode_attention  — single-query attention over a KV cache, the decode
+                      step's (csrc/decode_attention.cu)
+
 Sources build with nvcc at first CUDA use (`build.py`) into
 `kernels/build/`. Wrappers launch the kernel for CUDA tensors and run the
-plain version for CPU tensors. Each module's `block_candidates` lists
-the tiles its kernel is built at, for the tile-size autotuner.
+plain version for CPU tensors. Each TPU kernel's module lists the tiles
+its kernel is built at (`block_candidates`), for the tile-size autotuner.
 """

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
 SOURCES = ("graph_aggregate", "segment_aggregate", "flash_attention_tf32",
            "flash_attention_sm90", "flash_attention_hd256",
-           "flash_attention_hd256_tf32", "ssd_scan")
+           "flash_attention_hd256_tf32", "ssd_scan", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _HEADERS = ("tf32_mma.cuh", "flash_tf32.cuh", "wgmma_bf16.cuh")

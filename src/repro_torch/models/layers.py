@@ -14,10 +14,12 @@ when `cfg.use_pallas_attn` is set, else with `chunked_attention` (an
 online softmax over KV blocks). The reference prefills with
 `chunked_attention` whatever the flag says; the kernel computes the same
 softmax. Decode attends over a cache (a ring buffer for sliding-window
-layers) with `cache_attention`. MLA attends with `chunked_attention`
-whatever the flag says, as the reference does, and decodes in the
-absorbed form over its compressed cache (the KV latent and one rope key
-per position).
+layers) with `cache_attention`: on a card through the hand-written
+decode kernel (`repro_torch.kernels.decode_attention`), which reads the
+cache once in its own dtype, up to the current position. MLA attends
+with `chunked_attention` whatever the flag says, as the reference does,
+and decodes in the absorbed form over its compressed cache (the KV
+latent and one rope key per position).
 The MoE ffn dispatches by a stable sort into per-expert capacity slots
 and drops what overflows, as the reference does; its expert products are
 batched matmuls. The SSD mixer takes the reference's chunked algorithm,
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.core.hlo_import import loop
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.sharding.context import constrain
@@ -234,27 +237,17 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     pos: int, *, window: int | None = None) -> torch.Tensor:
     """Decode: q [B,1,H,hd] over cache [B,C,KH,hd]; k_pos [B,C] absolute
     positions of cached keys (-1 = empty slot), or None where every
-    slot is seen (a cross-attention cache)."""
+    slot is seen (a cross-attention cache). Through
+    `kernels.decode_attention`: on a card the hand-written decode kernel,
+    each call that returns counted as `attn.decode_kernel_calls` (the
+    route's record in `[spans]`, beside the kernel's own `launches`); on
+    the CPU its plain version, the reference's function as written."""
     with tracing.span("attn.core"):
-        return _cache_attention(q, k_cache, v_cache, k_pos, pos,
-                                window=window)
-
-
-def _cache_attention(q, k_cache, v_cache, k_pos, pos, *, window):
-    B, _, H, hd = q.shape
-    C, KH = k_cache.shape[1], k_cache.shape[2]
-    rep = H // KH
-    scale = 1.0 / math.sqrt(hd)
-    qh = (q * _scalar(scale, q)).reshape(B, KH, rep, hd)
-    s = torch.einsum("bgrd,btgd->bgrt", qh.float(), k_cache.float())
-    if k_pos is not None:
-        valid = (k_pos >= 0) & (k_pos <= pos)
-        if window is not None:
-            valid = valid & (pos - k_pos < window)
-        s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgrt,btgd->bgrd", p, v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+        out = decode_attention(q, k_cache, v_cache, k_pos, pos,
+                               window=window)
+        if q.is_cuda:
+            tracing.count("attn.decode_kernel_calls", 1)
+        return out
 
 
 # ----------------------------------------------------------------------------

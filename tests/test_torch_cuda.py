@@ -5,6 +5,8 @@ nothing of jax so that it runs on a machine with the card and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -571,6 +573,15 @@ def _every_kernel(dev):
     d = torch.rand((2, 5, 3), generator=gen).to(dev)
     res.append(("ssd_scan", ss.ssd_scan(S, d)[1], ss.ssd_scan_plain(S, d)[1],
                 True))
+    from repro_torch.kernels import decode_attention as dec
+    for shape, case in (((64, 32, 32, 64, 504), "full-mid"),
+                        ((4, 24, 8, 64, 1100), "ring-after")):
+        (q, k, v, k_pos, pos, window), _ = _decode_inputs(
+            shape, case, torch.bfloat16)
+        q, k, v, k_pos = (t.to(dev) for t in (q, k, v, k_pos))
+        res.append((f"decode_attention {shape}", dec.decode_attention(
+            q, k, v, k_pos, pos, window=window), dec.decode_attention_plain(
+            q, k, v, k_pos, pos, window=window), False))
     return res
 
 
@@ -1084,3 +1095,165 @@ def test_flash_and_ssd_refuse_grad_on_the_card(dtype):
         ss.ssd_scan(S, d)
     with torch.no_grad():
         assert ss.ssd_scan(S, d)[1].shape == (1, 1, 3, 4)
+
+
+# ------------------------------------------------------- decode attention
+# (B, H, KH, hd, C): the zoo's head dims and reps, at batch 64, 4 and 1
+DECODE_SHAPES = [(64, 32, 32, 64, 504),   # musicgen-large: MHA, rep 1
+                 (4, 24, 8, 64, 1100),    # granite-moe-3b-a800m: rep 3
+                 (4, 32, 8, 120, 700),    # h2o-danube-3-4b: rep 4, hd 120
+                 (1, 56, 8, 128, 600),    # llava-next-34b: rep 7
+                 (1, 16, 1, 256, 520)]    # recurrentgemma-9b: MQA, rep 16
+# where the query stands: a full cache at its first, a middle and its
+# last slot; a ring of window C before and after it wraps; a full cache
+# with a window of C/3 (masked keys inside the read range); the cross
+# cache (no k_pos)
+DECODE_CASES = ["full-0", "full-mid", "full-last", "ring-before",
+                "ring-after", "window", "cross"]
+
+
+def _decode_inputs(shape, case, dtype, seed=0):
+    """(q, k, v, k_pos, pos, window) on the card, and the kernel's k and
+    v: the same with every slot at or beyond the read range NaN, which
+    the kernel must never read."""
+    from repro_torch.kernels import decode_attention as dec
+    B, H, KH, hd, C = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g) for s in
+               ((B, 1, H, hd), (B, C, KH, hd), (B, C, KH, hd)))
+    slots, window = torch.arange(C), None
+    if case == "cross":
+        k_pos, pos = None, 0
+    elif case.startswith("ring"):
+        window = C
+        pos = C // 3 if case == "ring-before" else 2 * C + C // 3
+        latest = pos - (pos - slots) % C       # slot s holds p % C == s
+        k_pos = torch.where(latest >= 0, latest, -1)
+    else:
+        pos = {"full-0": 0, "full-mid": C // 2}.get(case, C - 1)
+        window = C // 3 if case == "window" else None
+        k_pos = torch.where(slots <= pos, slots, -1)
+    if k_pos is not None:
+        k_pos = k_pos.to(torch.int32)[None].expand(B, C).contiguous().cuda()
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    n = dec.read_slots(C, k_pos, pos)
+    k_nan, v_nan = k.clone(), v.clone()
+    k_nan[:, n:] = float("nan")
+    v_nan[:, n:] = float("nan")
+    return (q, k, v, k_pos, pos, window), (k_nan, v_nan)
+
+
+def _decode_limit(ref) -> float:
+    """Both routes compute in f32 and differ in the order of their sums
+    alone (~1e-6 of the terms' scale). In bf16 each rounds once to bf16,
+    so an element lands at most one of its own bf16 ulps apart, which is
+    at most one ulp of the output's largest element; in f32 the two lie
+    within 1e-5 of that element (the flash kernel's f32 check is 2e-5)."""
+    scale = float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        return 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
+def test_decode_attention_cuda_kernel_matches_plain(shape, case, dtype):
+    """The kernel against the plain version (over all C slots) in the
+    working dtype, within `_decode_limit`, reading nothing at or beyond
+    n = min(pos + 1, C) (those slots are NaN in the kernel's input)."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as dec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (q, k, v, k_pos, pos, window), (k_nan, v_nan) = _decode_inputs(
+        shape, case, getattr(torch, dtype))
+    out = dec.decode_attention(q, k_nan, v_nan, k_pos, pos, window=window)
+    ref = dec.decode_attention_plain(q, k, v, k_pos, pos, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _decode_limit(ref), (err, _decode_limit(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_attention_reads_strided_layer_views(dtype):
+    """A layer's view of a cache stacked with the layer axis second
+    ([B, L, C, KH, hd][:, 1]) and of one whose rows are padded past hd:
+    the kernel gives what it gives on contiguous copies, bit for bit,
+    and the plain version's result within `_decode_limit`."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as dec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    (q, k, v, k_pos, pos, _), _ = _decode_inputs((4, 24, 8, 64, 1100),
+                                                 "full-mid", dt)
+    B, C, KH, hd = k.shape
+    stacked = torch.randn(B, 3, C, KH, hd, device="cuda").to(dt)
+    stacked[:, 1] = k
+    padded = torch.randn(B, C, KH, hd + 8, device="cuda").to(dt)
+    padded[..., :hd] = v
+    kp = torch.full((B, 2, C), -1, dtype=torch.int32, device="cuda")
+    kp[:, 0] = k_pos
+    ks, vs, kps = stacked[:, 1], padded[..., :hd], kp[:, 0]
+    assert not ks.is_contiguous() and not vs.is_contiguous()
+    out = dec.decode_attention(q, ks, vs, kps, pos)
+    want = dec.decode_attention(q, k, v, k_pos, pos)
+    ref = dec.decode_attention_plain(q, k, v, k_pos, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= _decode_limit(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,KH,C", [(64, 32, 504), (33, 8, 512),
+                                    (4, 8, 2048), (1, 8, 100), (1, 8, 60)])
+def test_decode_attention_launches_and_splits(B, KH, C):
+    """One launch where B * KH covers the SMs twice (musicgen's 64 x 32,
+    and 33 x 8 = 264), two below it where the slots fill more than one
+    tile (the split kernel and the merge), one where they do not."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as dec
+    sms = dec._sm_count(torch.cuda.current_device())
+    (q, k, v, k_pos, pos, _), _ = _decode_inputs((B, KH, KH, 64, C),
+                                                 "full-last", torch.bfloat16)
+    tile = dec.tile_slots(64, 2)
+    splits, _ = dec.plan(B * KH, C, tile, sms)
+    assert (splits > 1) == (B * KH < 2 * sms and C > tile)
+    before = dec.launches
+    out = dec.decode_attention(q, k, v, k_pos, pos)
+    assert dec.launches - before == (2 if splits > 1 else 1)
+    ref = dec.decode_attention_plain(q, k, v, k_pos, pos)
+    assert float((out.float() - ref.float()).abs().max()) \
+        <= _decode_limit(ref)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_the_kernel_does_not_take():
+    """hd past 256 or not a multiple of 8, a rep that does not divide H,
+    rep * hd past 4096, mixed dtypes, an int64 k_pos, and inputs that
+    require grad raise on the card, and nothing launches."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as dec
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda").to(dtype)
+    before = dec.launches
+    for q, kv, match in ((t(1, 1, 4, 264), t(1, 8, 4, 264), "head dim"),
+                         (t(1, 1, 4, 12), t(1, 8, 4, 12), "head dim"),
+                         (t(1, 1, 6, 64), t(1, 8, 4, 64), "H % KH"),
+                         (t(1, 1, 32, 256), t(1, 8, 1, 256), "rep \\* hd"),
+                         (t(1, 1, 4, 64), t(1, 8, 4, 64, dtype=torch.float32),
+                          "must be")):
+        with pytest.raises(ValueError, match=match):
+            dec.decode_attention(q, kv, kv, None, 0)
+    q, kv = t(1, 1, 4, 64), t(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="int32"):
+        dec.decode_attention(q, kv, kv, torch.zeros(1, 8, dtype=torch.long,
+                                                    device="cuda"), 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dec.decode_attention(q.requires_grad_(True), kv, kv, None, 0)
+    assert dec.launches == before
