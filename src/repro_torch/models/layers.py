@@ -4,7 +4,9 @@ multi-head latent attention (MLA), the SwiGLU MLP, the token-choice MoE
 ffn, the Mamba2 SSD mixer and RecurrentGemma's RG-LRU mixer; and, for
 MusicGen's decoder (the port's own, not in the reference), LayerNorm,
 sinusoidal positions, the two-matrix GELU MLP and cross-attention to a
-conditioning sequence, whose keys and values prefill caches once.
+conditioning sequence, whose keys and values prefill caches once. Each
+mixer and ffn kind of a config's pattern is one record of `MIXERS` or
+`FFNS`.
 
 Port of `repro.models.layers`. Parameters are dicts
 of tensors laid out as the reference's pytrees. GQA and sliding-window
@@ -39,6 +41,7 @@ too, so that bf16 rounds at the same points.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -159,77 +162,70 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the f32 cast, as the reference does. Under a dry-run's activation
     mapping the queries split by position over the model axis and the
     keys and values are whole there (`constrain`; not in the reference,
-    where GSPMD finds a layout, and the identity otherwise)."""
+    where GSPMD finds a layout, and the identity otherwise). Runs under
+    the span `attn.core`, each call counted as `attn.chunked_calls`."""
     with tracing.span("attn.core"):
-        return _chunked_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset, block_kv=block_kv)
+        tracing.count("attn.chunked_calls", 1)
+        q = constrain(q, "attn_q")
+        k = constrain(k, "attn_kv")
+        v = constrain(v, "attn_kv")
+        B, S, H, hd = q.shape
+        T, KH = k.shape[1], k.shape[2]
+        rep = H // KH
+        scale = 1.0 / math.sqrt(hd)
+        qh = (q * _scalar(scale, q)).reshape(B, S, KH, rep, hd)
+        qh = qh.float().permute(0, 2, 3, 1, 4)             # [B,KH,rep,S,hd]
 
+        blk = min(block_kv, T)
+        nb = -(-T // blk)
+        q_pos = q_offset + torch.arange(S, device=q.device)
 
-def _chunked_attention(q, k, v, *, causal, window, q_offset, block_kv):
-    tracing.count("attn.chunked_calls", 1)
-    q = constrain(q, "attn_q")
-    k = constrain(k, "attn_kv")
-    v = constrain(v, "attn_kv")
-    B, S, H, hd = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    rep = H // KH
-    scale = 1.0 / math.sqrt(hd)
-    qh = (q * _scalar(scale, q)).reshape(B, S, KH, rep, hd)
-    qh = qh.float().permute(0, 2, 3, 1, 4)                 # [B,KH,rep,S,hd]
-
-    blk = min(block_kv, T)
-    nb = -(-T // blk)
-    q_pos = q_offset + torch.arange(S, device=q.device)
-
-    m = torch.full((B, KH, rep, S), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, KH, rep, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KH, rep, S, hd), dtype=torch.float32,
-                      device=q.device)
-    for bi in loop(nb):
-        # the last block may be ragged: the reference pads it with keys
-        # that it masks, which changes no row that sees a key
-        kq = k[:, bi * blk:(bi + 1) * blk].float()
-        vq = v[:, bi * blk:(bi + 1) * blk].float()
-        n = kq.shape[1]
-        s = qh @ kq.permute(0, 2, 3, 1)[:, :, None]      # [B,KH,rep,S,n]
-        k_pos = bi * blk + torch.arange(n, device=q.device)
-        valid = torch.ones((S, n), dtype=torch.bool, device=q.device)
-        if causal:
-            valid = valid & (k_pos[None, :] <= q_pos[:, None])
-        if window is not None:
-            valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
-        s = torch.where(valid, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        pv = p @ vq.permute(0, 2, 1, 3)[:, :, None]       # [B,KH,rep,S,hd]
-        acc = acc * alpha[..., None] + pv
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
-    return out.to(q.dtype)
+        m = torch.full((B, KH, rep, S), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KH, rep, S), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KH, rep, S, hd), dtype=torch.float32,
+                          device=q.device)
+        for bi in loop(nb):
+            # the last block may be ragged: the reference pads it with
+            # keys that it masks, which changes no row that sees a key
+            kq = k[:, bi * blk:(bi + 1) * blk].float()
+            vq = v[:, bi * blk:(bi + 1) * blk].float()
+            n = kq.shape[1]
+            s = qh @ kq.permute(0, 2, 3, 1)[:, :, None]  # [B,KH,rep,S,n]
+            k_pos = bi * blk + torch.arange(n, device=q.device)
+            valid = torch.ones((S, n), dtype=torch.bool, device=q.device)
+            if causal:
+                valid = valid & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = p @ vq.permute(0, 2, 1, 3)[:, :, None]   # [B,KH,rep,S,hd]
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+        return out.to(q.dtype)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           cfg: ModelConfig, *, window: int | None,
-           q_offset: int = 0) -> torch.Tensor:
+           cfg: ModelConfig, *, window: int | None) -> torch.Tensor:
     """Causal GQA attention of the train and prefill paths (`attn` and
     `swa` layers), q: [B,S,H,hd]; k,v: [B,T,KH,hd]. With
-    `cfg.use_pallas_attn` the flash-attention kernel, counted as
-    `attn.kernel_calls` (a shape it refuses raises); otherwise
+    `cfg.use_pallas_attn` the flash-attention kernel under `attn.core`,
+    counted as `attn.kernel_calls` (a shape it refuses raises); otherwise
     `chunked_attention` at `cfg.block_kv`. On a card the kernel's own
     launch counters (`flash_attention.launches`) count the same calls;
     this counter is the route's record on the CPU, where the kernel's
     plain version launches nothing, and in `tracing`'s counters."""
+    if not cfg.use_pallas_attn:
+        return chunked_attention(q, k, v, window=window, block_kv=cfg.block_kv)
     with tracing.span("attn.core"):
-        if cfg.use_pallas_attn:
-            tracing.count("attn.kernel_calls", 1)
-            return flash_attention(q, k, v, causal=True, window=window,
-                                   q_offset=int(q_offset))
-        return _chunked_attention(q, k, v, causal=True, window=window,
-                                  q_offset=q_offset, block_kv=cfg.block_kv)
+        tracing.count("attn.kernel_calls", 1)
+        return flash_attention(q, k, v, causal=True, window=window)
 
 
 def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -298,18 +294,32 @@ def attn_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def attn_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                     window: int | None, q_offset: int = 0) -> torch.Tensor:
-    B, S, D = x.shape
-    positions = q_offset + torch.arange(S, device=x.device)
+def _attn_over_prompt(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                      window: int | None) -> tuple:
+    """x [B,S,D] from position 0 -> (y [B,S,D], k, v [B,S,KH,hd])."""
+    # `0 +` as the reference's `q_offset +`: `core.hlo_import` records it
+    positions = 0 + torch.arange(x.shape[1], device=x.device)
     q, k, v = attn_qkv(params, cfg, x, positions)
-    out = attend(q, k, v, cfg, window=window, q_offset=q_offset)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    out = attend(q, k, v, cfg, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), k, v
 
 
-def attn_cache_init(cfg: ModelConfig, batch: int, capacity: int, *,
-                    window: int | None, lead: tuple = (),
-                    device="cpu") -> dict:
+def attn_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                     window: int | None) -> torch.Tensor:
+    return _attn_over_prompt(params, cfg, x, window)[0]
+
+
+def attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 capacity: int, *, window: int | None) -> tuple:
+    """Train's output and the decode cache of the prompt's keys and values."""
+    y, k, v = _attn_over_prompt(params, cfg, x, window)
+    return y, attn_make_cache_from_prefill(cfg, k, v, window=window,
+                                           capacity=capacity)
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, capacity: int,
+                    lead: tuple = (), device="cpu", *,
+                    window: int | None) -> dict:
     KH, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     C = min(capacity, window) if window is not None else capacity
     dt = _dt(cfg)
@@ -630,14 +640,15 @@ def _mla_kv_latent(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return ckv, k_rope[:, :, 0, :]
 
 
-def mla_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                    q_offset: int = 0) -> torch.Tensor:
-    """x [B,S,D] -> [B,S,D]. q = [q_nope, q_rope] and k = [k_nope, k_rope
-    broadcast over the heads], nope + rope columns each; v is zero-padded
-    to that width so that `chunked_attention` applies (which scales q by
-    1/sqrt of the padded width) and its output is sliced back before wo.
-    As in the reference, MLA attends with `chunked_attention` whatever
-    `cfg.use_pallas_attn` says."""
+def _mla_over_prompt(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     q_offset: int) -> tuple:
+    """x [B,S,D] from position `q_offset` -> (y [B,S,D], its KV latent:
+    `_mla_kv_latent`'s ckv and rope key). q = [q_nope, q_rope] and k =
+    [k_nope, k_rope broadcast over the heads], nope + rope columns each;
+    v is zero-padded to that width so that `chunked_attention` applies
+    (which scales q by 1/sqrt of the padded width) and its output is
+    sliced back before wo. As in the reference, MLA attends with
+    `chunked_attention` whatever `cfg.use_pallas_attn` says."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
@@ -653,7 +664,24 @@ def mla_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     v_p = F.pad(v, (0, qk - m.v_head_dim))
     out = chunked_attention(q, k, v_p, causal=True, q_offset=q_offset,
                             block_kv=cfg.block_kv)[..., :m.v_head_dim]
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), ckv, k_rope
+
+
+def mla_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                    q_offset: int = 0) -> torch.Tensor:
+    return _mla_over_prompt(params, cfg, x, q_offset)[0]
+
+
+def mla_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                capacity: int) -> tuple:
+    """Train's output and its KV latent's cache, padded to `capacity`."""
+    y, ckv, krope = _mla_over_prompt(params, cfg, x, 0)
+    B, S, _ = x.shape
+    pad = capacity - S
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    return y, {"ckv": F.pad(ckv, (0, 0, 0, pad)),
+               "krope": F.pad(krope, (0, 0, 0, pad)),
+               "k_pos": F.pad(k_pos.expand(B, S), (0, pad), value=-1)}
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, capacity: int,
@@ -845,16 +873,19 @@ def _ssd_out(params: dict, cfg: ModelConfig, Y: torch.Tensor,
     return y @ params["w_out"]
 
 
-def ssd_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    conv_state=None, h0=None, return_state: bool = False):
-    """x: [B,S,D] -> [B,S,D]; with `return_state`, also the decode cache
-    {"state": f32 [B,H,N,P], "conv": the last W-1 conv inputs in x's
-    dtype}. S is padded up to a multiple of the chunk with state-neutral
-    steps (B = 0: no input; dlog = 0: no decay)."""
+def ssd_apply_train(params: dict, cfg: ModelConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    return ssd_prefill(params, cfg, x)[0]
+
+
+def ssd_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:
+    """x: [B,S,D] -> (y [B,S,D], the decode cache {"state": f32
+    [B,H,N,P], "conv": the last W-1 conv inputs in x's dtype}). S is
+    padded up to a multiple of the chunk with state-neutral steps (B = 0:
+    no input; dlog = 0: no decay)."""
     B, S, _ = x.shape
     _, H, P, _ = ssd_dims(cfg)
-    z, xs, Bm, Cm, dt, new_conv = _ssd_conv_inputs(params, cfg, x,
-                                                   conv_state)
+    z, xs, Bm, Cm, dt, new_conv = _ssd_conv_inputs(params, cfg, x, None)
     a = -torch.exp(params["A_log"])                           # [H], negative
     dlog = dt * a[None, None, :]                              # [B,S,H]
     X = xs.reshape(B, S, H, P)
@@ -864,15 +895,13 @@ def ssd_apply_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if pad:
         Y, hT = ssd_mix_chunked(
             cfg, F.pad(U, (0, 0, 0, 0, 0, pad)), F.pad(Bm, (0, 0, 0, pad)),
-            F.pad(Cm, (0, 0, 0, pad)), F.pad(dlog, (0, 0, 0, pad)), h0)
+            F.pad(Cm, (0, 0, 0, pad)), F.pad(dlog, (0, 0, 0, pad)))
         Y = Y[:, :S]
     else:
-        Y, hT = ssd_mix_chunked(cfg, U, Bm, Cm, dlog, h0)
+        Y, hT = ssd_mix_chunked(cfg, U, Bm, Cm, dlog)
     Y = Y + params["D_skip"][None, None, :, None] * X.float()
     out = _ssd_out(params, cfg, Y, z, x)
-    if return_state:
-        return out, {"state": hT.float(), "conv": new_conv}
-    return out
+    return out, {"state": hT.float(), "conv": new_conv}
 
 
 def ssd_cache_init(cfg: ModelConfig, batch: int, lead: tuple = (),
@@ -1006,6 +1035,12 @@ def rglru_apply_train(params: dict, cfg: ModelConfig,
     return rglru_core(params, cfg, x)[0]
 
 
+def rglru_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:
+    """Train's output and its decode cache (last state, f32; conv inputs)."""
+    y, conv, h_last = rglru_core(params, cfg, x)
+    return y, {"state": h_last.float(), "conv": conv}
+
+
 def rglru_cache_init(cfg: ModelConfig, batch: int, lead: tuple = (),
                      device="cpu") -> dict:
     rc = cfg.rglru
@@ -1029,3 +1064,64 @@ def rglru_apply_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     cache["state"].copy_(h_last)
     cache["conv"].copy_(new_conv)
     return out, cache
+
+
+# ----------------------------------------------------------------------------
+# The kinds of a pattern element "<mixer>+<ffn>"
+# ----------------------------------------------------------------------------
+class Mixer(NamedTuple):
+    """One mixer kind. Every kind takes the same calls, over the block's
+    normed input x [B,S,D] ([B,1,D] in decode); decode updates the cache
+    in place. The recurrent kinds ignore `capacity` and `pos`."""
+    init: Callable        # (generator, cfg, lead, device) -> params
+    cache_init: Callable  # (cfg, batch, capacity, lead, device) -> cache
+    train: Callable       # (params, cfg, x) -> y
+    prefill: Callable     # (params, cfg, x, capacity) -> (y, its cache)
+    decode: Callable      # (params, cfg, x, cache, pos) -> (y, cache)
+
+
+class Ffn(NamedTuple):
+    """One ffn kind (`FFNS["none"]` is None: the element has none)."""
+    init: Callable        # (generator, cfg, lead, device) -> params
+    apply: Callable       # (params, cfg, x) -> y
+
+
+# The entries call this module's functions by name when they run, so that
+# a test or a probe that replaces one (`layers.moe_apply`,
+# `layers.mla_apply_train`) sees the model's calls.
+def _gqa(window: Callable[[ModelConfig], int | None]) -> Mixer:
+    """`attn` or `swa`: the GQA functions with `window(cfg)`."""
+    return Mixer(
+        lambda *a: attn_init(*a),
+        lambda cfg, *a: attn_cache_init(cfg, *a, window=window(cfg)),
+        lambda p, cfg, *a: attn_apply_train(p, cfg, *a, window=window(cfg)),
+        lambda p, cfg, *a: attn_prefill(p, cfg, *a, window=window(cfg)),
+        lambda p, cfg, *a: attn_apply_decode(p, cfg, *a, window=window(cfg)))
+
+
+MIXERS: dict[str, Mixer] = {
+    "attn": _gqa(lambda cfg: None),
+    "swa": _gqa(lambda cfg: cfg.sliding_window),
+    "mla": Mixer(lambda *a: mla_init(*a), lambda *a: mla_cache_init(*a),
+                 lambda *a: mla_apply_train(*a), lambda *a: mla_prefill(*a),
+                 lambda *a: mla_apply_decode(*a)),
+    "ssd": Mixer(lambda *a: ssd_init(*a),
+                 lambda cfg, b, cap, *a: ssd_cache_init(cfg, b, *a),
+                 lambda *a: ssd_apply_train(*a),
+                 lambda p, cfg, x, cap: ssd_prefill(p, cfg, x),
+                 lambda *a: ssd_apply_decode(*a)),
+    "rglru": Mixer(lambda *a: rglru_init(*a),
+                   lambda cfg, b, cap, *a: rglru_cache_init(cfg, b, *a),
+                   lambda *a: rglru_apply_train(*a),
+                   lambda p, cfg, x, cap: rglru_prefill(p, cfg, x),
+                   lambda *a: rglru_apply_decode(*a)),
+}
+
+FFNS: dict[str, Ffn | None] = {
+    "mlp": Ffn(
+        lambda g, cfg, lead, dev: mlp_init(g, cfg, lead=lead, device=dev),
+        lambda p, cfg, x: (gelu_mlp_apply(p, x) if cfg.mlp == "gelu"
+                           else mlp_apply(p, x))),
+    "moe": Ffn(lambda *a: moe_init(*a), lambda *a: moe_apply(*a)),
+    "none": None,
+}

@@ -1,6 +1,7 @@
 """Generic LM assembled from config stacks: `repro.models.lm` for the
-mixers `attn`, `swa`, `mla`, `ssd` and `rglru` and the ffns `mlp`, `moe`
-and `none`, with the frame-embedding (`cfg.embed_inputs`) and
+mixer kinds of `layers.MIXERS` (`attn`, `swa`, `mla`, `ssd`, `rglru`)
+and the ffn kinds of `layers.FFNS` (`mlp`, `moe`, `none`), with the
+frame-embedding (`cfg.embed_inputs`) and
 patch-prefix (`cfg.num_patch_tokens`) front ends. It runs all ten archs
 of the zoo: h2o-danube-3-4b, yi-9b, yi-34b, qwen3-14b,
 granite-moe-3b-a800m, deepseek-v3-671b, musicgen-large, llava-next-34b,
@@ -48,10 +49,9 @@ Entry points:
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tracing
@@ -65,31 +65,28 @@ from repro_torch.training.adafactor import adafactor_init, \
 from repro_torch.training.optim import AdamWConfig, adamw_init, \
     adamw_update_, divide, tree_leaves, tree_map, tree_unflatten
 
-_MIXERS = ("attn", "swa", "mla", "ssd", "rglru")
-# span names, built once: a span site then passes a constant
-_MIXER_SPAN = {m: f"mixer.{m}" for m in _MIXERS}
-_FFN_SPAN = {"mlp": "ffn.mlp", "moe": "ffn.moe"}
+
+class _Elem(NamedTuple):
+    """A pattern element "<mixer>+<ffn>": its records, its spans' names."""
+    mixer: L.Mixer
+    ffn: L.Ffn | None
+    mixer_span: str
+    ffn_span: str
 
 
-def _parse(elem: str) -> tuple[str, str]:
-    if "+" in elem:
-        m, f = elem.split("+", 1)
-    else:
-        m, f = elem, "none"
-    return m, f
-
-
-def _check_elem(elem: str) -> tuple[str, str]:
-    mixer, ffn = _parse(elem)
-    if mixer not in _MIXERS:
+def _check_elem(elem: str) -> _Elem:
+    mixer, plus, ffn = elem.partition("+")
+    ffn = ffn if plus else "none"
+    if mixer not in L.MIXERS:
         raise ValueError(f"unknown mixer {mixer!r}")
-    if ffn not in ("mlp", "moe", "none"):
+    if ffn not in L.FFNS:
         raise ValueError(f"unknown ffn {ffn!r}")
-    return mixer, ffn
+    return _Elem(L.MIXERS[mixer], L.FFNS[ffn], f"mixer.{mixer}", f"ffn.{ffn}")
 
 
-def _mixer_window(cfg: ModelConfig, mixer: str) -> int | None:
-    return cfg.sliding_window if mixer == "swa" else None
+def _elems(cfg: ModelConfig) -> list[list[_Elem]]:
+    """Each stack's pattern, resolved."""
+    return [[_check_elem(e) for e in stack.pattern] for stack in cfg.stacks]
 
 
 def _index(tree, i: int):
@@ -101,49 +98,32 @@ def _index(tree, i: int):
 
 def _stack(trees: list):
     """Stack per-layer trees along a new leading axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
 # ----------------------------------------------------------------------------
 # Block init / apply
 # ----------------------------------------------------------------------------
-def block_init(generator, cfg: ModelConfig, elem: str, lead: tuple = (),
+def block_init(generator, cfg: ModelConfig, elem: _Elem, lead: tuple = (),
                device="cpu") -> dict:
-    mixer, ffn = _check_elem(elem)
     p: dict[str, Any] = {"norm1": L.norm_init(cfg, lead, device)}
-    if mixer == "mla":
-        p["mixer"] = L.mla_init(generator, cfg, lead, device)
-    elif mixer == "ssd":
-        p["mixer"] = L.ssd_init(generator, cfg, lead, device)
-    elif mixer == "rglru":
-        p["mixer"] = L.rglru_init(generator, cfg, lead, device)
-    else:
-        p["mixer"] = L.attn_init(generator, cfg, lead, device)
+    p["mixer"] = elem.mixer.init(generator, cfg, lead, device)
     if cfg.cross_attn_dim:
         p["norm_x"] = L.norm_init(cfg, lead, device)
         p["xattn"] = L.xattn_init(generator, cfg, lead, device)
-    if ffn != "none":
+    if elem.ffn is not None:
         p["norm2"] = L.norm_init(cfg, lead, device)
-        p["ffn"] = (L.mlp_init(generator, cfg, lead=lead, device=device)
-                    if ffn == "mlp"
-                    else L.moe_init(generator, cfg, lead, device))
+        p["ffn"] = elem.ffn.init(generator, cfg, lead, device)
     return p
 
 
-def _ffn(params: dict, cfg: ModelConfig, ffn: str,
+def _ffn(params: dict, cfg: ModelConfig, elem: _Elem,
          x: torch.Tensor) -> torch.Tensor:
-    if ffn != "none":
-        with tracing.span(_FFN_SPAN[ffn]):
-            h = L.norm(params["norm2"], cfg, x)
-            if ffn == "moe":
-                x = x + L.moe_apply(params["ffn"], cfg, h)
-            elif cfg.mlp == "gelu":
-                x = x + L.gelu_mlp_apply(params["ffn"], h)
-            else:
-                x = x + L.mlp_apply(params["ffn"], h)
-    return x
+    if elem.ffn is None:
+        return x
+    with tracing.span(elem.ffn_span):
+        h = L.norm(params["norm2"], cfg, x)
+        return x + elem.ffn.apply(params["ffn"], cfg, h)
 
 
 def _xattn(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -162,106 +142,36 @@ def _xattn(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                                  decode=src is None)
 
 
-def block_apply_train(params: dict, cfg: ModelConfig, elem: str,
+def block_apply_train(params: dict, cfg: ModelConfig, elem: _Elem,
                       x: torch.Tensor) -> torch.Tensor:
-    mixer, ffn = _check_elem(elem)
     h = L.norm(params["norm1"], cfg, x)
-    if mixer == "mla":
-        h = L.mla_apply_train(params["mixer"], cfg, h)
-    elif mixer == "ssd":
-        h = L.ssd_apply_train(params["mixer"], cfg, h)
-    elif mixer == "rglru":
-        h = L.rglru_apply_train(params["mixer"], cfg, h)
-    else:
-        h = L.attn_apply_train(params["mixer"], cfg, h,
-                               window=_mixer_window(cfg, mixer))
+    h = elem.mixer.train(params["mixer"], cfg, h)
     # the mixer's output as the block's (not in the reference: DTensor
     # would otherwise carry its pending sum over "model" into the ffn)
     h = constrain(h, "act_btd")
-    return constrain(_ffn(params, cfg, ffn, x + h), "act_btd")
+    return constrain(_ffn(params, cfg, elem, x + h), "act_btd")
 
 
-def block_cache_init(cfg: ModelConfig, elem: str, batch: int,
-                     capacity: int, lead: tuple = (), device="cpu") -> dict:
-    mixer, _ = _check_elem(elem)
-    if mixer == "mla":
-        return L.mla_cache_init(cfg, batch, capacity, lead, device)
-    if mixer == "ssd":
-        return L.ssd_cache_init(cfg, batch, lead, device)
-    if mixer == "rglru":
-        return L.rglru_cache_init(cfg, batch, lead, device)
-    return L.attn_cache_init(cfg, batch, capacity,
-                             window=_mixer_window(cfg, mixer), lead=lead,
-                             device=device)
-
-
-def block_apply_decode(params: dict, cfg: ModelConfig, elem: str,
+def block_apply_decode(params: dict, cfg: ModelConfig, elem: _Elem,
                        x: torch.Tensor, cache: dict, pos: int) -> tuple:
-    mixer, ffn = _check_elem(elem)
     h = L.norm(params["norm1"], cfg, x)
-    with tracing.span(_MIXER_SPAN[mixer]):
-        if mixer == "mla":
-            h, new_cache = L.mla_apply_decode(params["mixer"], cfg, h, cache,
-                                              pos)
-        elif mixer == "ssd":
-            h, new_cache = L.ssd_apply_decode(params["mixer"], cfg, h, cache,
-                                              pos)
-        elif mixer == "rglru":
-            h, new_cache = L.rglru_apply_decode(params["mixer"], cfg, h,
-                                                cache, pos)
-        else:
-            h, new_cache = L.attn_apply_decode(
-                params["mixer"], cfg, h, cache, pos,
-                window=_mixer_window(cfg, mixer))
+    with tracing.span(elem.mixer_span):
+        h, cache = elem.mixer.decode(params["mixer"], cfg, h, cache, pos)
     x = _xattn(params, cfg, x + h, cache, None)
-    return _ffn(params, cfg, ffn, x), new_cache
+    return _ffn(params, cfg, elem, x), cache
 
 
-def block_apply_prefill(params: dict, cfg: ModelConfig, elem: str,
+def block_apply_prefill(params: dict, cfg: ModelConfig, elem: _Elem,
                         x: torch.Tensor, capacity: int,
                         xsrc: torch.Tensor | None = None) -> tuple:
-    """Like train, but also returns the decode cache for this layer.
-    GQA and sliding-window layers attend as in train (`layers.attend`:
-    the flash kernel with `use_pallas_attn`, where the reference keeps
-    `chunked_attention`); MLA attends with `chunked_attention`. With
+    """Like train, but also returns the decode cache for this layer. With
     `cfg.cross_attn_dim`, `xsrc` is the projected conditioning states
     [B,T,D], whose keys and values join the cache (`xk`, `xv`)."""
-    mixer, ffn = _check_elem(elem)
     h = L.norm(params["norm1"], cfg, x)
-    with tracing.span(_MIXER_SPAN[mixer]):
-        h, cache = _mixer_prefill(params["mixer"], cfg, mixer, h, capacity)
+    with tracing.span(elem.mixer_span):
+        h, cache = elem.mixer.prefill(params["mixer"], cfg, h, capacity)
     x = _xattn(params, cfg, x + h, cache, xsrc)
-    return _ffn(params, cfg, ffn, x), cache
-
-
-def _mixer_prefill(params: dict, cfg: ModelConfig, mixer: str,
-                   h: torch.Tensor, capacity: int) -> tuple:
-    """The mixer's output over the normed input `h` and its decode
-    cache."""
-    if mixer == "mla":
-        # the latent for the cache, then the train path, which computes
-        # it again (as the reference does); both padded to `capacity`
-        B, S = h.shape[:2]
-        positions = torch.arange(S, device=h.device)
-        ckv, krope = L._mla_kv_latent(params, cfg, h, positions)
-        pad = capacity - S
-        cache = {"ckv": F.pad(ckv, (0, 0, 0, pad)),
-                 "krope": F.pad(krope, (0, 0, 0, pad)),
-                 "k_pos": F.pad(positions.to(torch.int32).expand(B, S),
-                                (0, pad), value=-1)}
-        return L.mla_apply_train(params, cfg, h), cache
-    if mixer == "ssd":
-        return L.ssd_apply_train(params, cfg, h, return_state=True)
-    if mixer == "rglru":
-        h, conv, h_last = L.rglru_core(params, cfg, h)
-        return h, {"state": h_last.float(), "conv": conv}
-    window = _mixer_window(cfg, mixer)
-    positions = torch.arange(h.shape[1], device=h.device)
-    q, k, v = L.attn_qkv(params, cfg, h, positions)
-    out = L.attend(q, k, v, cfg, window=window)
-    h = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return h, L.attn_make_cache_from_prefill(cfg, k, v, window=window,
-                                             capacity=capacity)
+    return _ffn(params, cfg, elem, x), cache
 
 
 # ----------------------------------------------------------------------------
@@ -274,9 +184,7 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
     params across with `repro_torch.models.params.lm_from_jax_params`).
     On the meta device it gives the shapes alone, with no generator."""
     dev = resolve_device(device)
-    for stack in cfg.stacks:
-        for elem in stack.pattern:
-            _check_elem(elem)
+    elems = _elems(cfg)
     dt = L._dt(cfg)
     K = cfg.num_codebooks
     if K and cfg.tie_embeddings:
@@ -301,8 +209,8 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
             "b": torch.zeros(cfg.d_model, dtype=dt, device=dev)}
     params["stacks"] = [
         tuple(block_init(generator, cfg, elem, (stack.repeats,), dev)
-              for elem in stack.pattern)
-        for stack in cfg.stacks]
+              for elem in stack_elems)
+        for stack, stack_elems in zip(cfg.stacks, elems)]
     return params
 
 
@@ -369,9 +277,10 @@ def forward_trunk(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                                   "through prefill_step_fn and "
                                   "decode_step_fn only")
     remat = cfg.remat != "none" and torch.is_grad_enabled()
-    for stack, elem_params in zip(cfg.stacks, params["stacks"]):
+    for stack, stack_elems, elem_params in zip(cfg.stacks, _elems(cfg),
+                                               params["stacks"]):
         for layer in hlo_import.scan(elem_params, stack.repeats):
-            for elem, p in zip(stack.pattern, layer):
+            for elem, p in zip(stack_elems, layer):
                 if remat:
                     x = checkpoint(block_apply_train, p, cfg, elem, x,
                                    use_reentrant=False)
@@ -507,10 +416,10 @@ def train_step_fn(cfg: ModelConfig, optim_cfg: AdamWConfig | None = None):
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device="cuda") -> list:
     dev = resolve_device(device)
-    return [tuple(block_cache_init(cfg, elem, batch, capacity,
-                                   (stack.repeats,), dev)
-                  for elem in stack.pattern)
-            for stack in cfg.stacks]
+    return [tuple(elem.mixer.cache_init(cfg, batch, capacity,
+                                        (stack.repeats,), dev)
+                  for elem in stack_elems)
+            for stack, stack_elems in zip(cfg.stacks, _elems(cfg))]
 
 
 def cache_abstract(cfg: ModelConfig, batch: int, capacity: int) -> list:
@@ -521,6 +430,8 @@ def cache_abstract(cfg: ModelConfig, batch: int, capacity: int) -> list:
 def prefill_step_fn(cfg: ModelConfig, capacity: int):
     """`prefill(params, batch) -> (logits of the last position, caches)`,
     recorded as the root span `lm.prefill` while `tracing` records."""
+    elems = _elems(cfg)
+
     def prefill(params, batch):
         with tracing.span("lm.prefill") as s:
             if s is not None:
@@ -533,18 +444,17 @@ def prefill_step_fn(cfg: ModelConfig, capacity: int):
         xsrc = _cross_source(params, cfg, batch["text"]) \
             if cfg.cross_attn_dim else None
         caches = []
-        for stack, elem_params in zip(cfg.stacks, params["stacks"]):
-            per_layer = []
+        for stack, stack_elems, elem_params in zip(cfg.stacks, elems,
+                                                   params["stacks"]):
+            per_layer = []              # by layer, then by element
             for i in range(stack.repeats):
-                layer_caches = []
-                for elem, p in zip(stack.pattern, elem_params):
+                for elem, p in zip(stack_elems, elem_params):
                     with tracing.span("block"):
                         x, c = block_apply_prefill(_index(p, i), cfg, elem,
                                                    x, capacity, xsrc)
-                    layer_caches.append(c)
-                per_layer.append(layer_caches)
-            caches.append(tuple(_stack([lc[e] for lc in per_layer])
-                                for e in range(len(stack.pattern))))
+                    per_layer.append(c)
+            n = len(stack_elems)
+            caches.append(tuple(_stack(per_layer[e::n]) for e in range(n)))
         with _io_span("logits", cfg):
             h = L.norm(params["final_norm"], cfg, x)
             logits = logits_fn(params, cfg, h[:, -1:, :])
@@ -573,6 +483,8 @@ def _prefill_attrs(cfg: ModelConfig, batch: dict) -> dict:
 
 
 def decode_step_fn(cfg: ModelConfig):
+    elems = _elems(cfg)
+
     def decode(params, caches, tokens, pos):
         """tokens: [B,1] int, or codes [B,K,1] with K codebooks; pos: int,
         the tokens' position. Every arch embeds tokens here, the
@@ -584,10 +496,10 @@ def decode_step_fn(cfg: ModelConfig):
                 s.attrs.update(batch=tokens.shape[0], pos=pos)
             with _io_span("embed", cfg):
                 x = _embed_tokens(params, cfg, tokens, pos)
-            for stack, elem_params, stack_cache in zip(
-                    cfg.stacks, params["stacks"], caches):
+            for stack, stack_elems, elem_params, stack_cache in zip(
+                    cfg.stacks, elems, params["stacks"], caches):
                 for i in range(stack.repeats):
-                    for elem, p, c in zip(stack.pattern, elem_params,
+                    for elem, p, c in zip(stack_elems, elem_params,
                                           stack_cache):
                         with tracing.span("block"):
                             x, _ = block_apply_decode(_index(p, i), cfg,
@@ -615,16 +527,7 @@ def delay_codes(codes: torch.Tensor, pos: int, frames: int,
 
 
 def param_count(params) -> int:
-    def leaves(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                yield from leaves(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                yield from leaves(v)
-        else:
-            yield t
-    return int(sum(x.numel() for x in leaves(params)))
+    return int(sum(x.numel() for x in tree_leaves(params)))
 
 
 def analytic_param_count(cfg: ModelConfig) -> int:

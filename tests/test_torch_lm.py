@@ -27,8 +27,10 @@ from repro.models.config import SMOKE_SHAPE
 from repro.models.inputs import make_batch as jmake_batch
 from repro_torch.launch import serve as tserve
 from repro_torch.models import inputs as tinputs
+from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import registry
+from repro_torch.models.config import Stack
 from repro_torch.models.params import lm_from_jax_params
 
 ARCHS = ["h2o-danube-3-4b", "yi-9b", "qwen3-14b"]
@@ -332,3 +334,58 @@ def test_unported_archs_raise(entry):
     assert {p.rsplit("/", 1)[1] for p, _, _ in _tree(got)} >= (
         {"wdq", "wuq", "wdkv", "wuk", "wuv", "wo"} if entry == "init_params"
         else {"ckv", "krope", "k_pos"})
+
+
+# the smoke config that runs each mixer kind of `layers.MIXERS`
+MIXER_ARCHS = {"attn": "qwen3-14b", "swa": "h2o-danube-3-4b",
+               "mla": "deepseek-v3-671b", "ssd": "mamba2-2.7b",
+               "rglru": "recurrentgemma-9b"}
+
+
+@pytest.mark.parametrize("kind", sorted(L.MIXERS))
+def test_each_mixer_kind_prefills_what_it_trains(kind):
+    """One layer of each record of `layers.MIXERS` at its arch's smoke
+    config: prefill's output is train's, bit for bit, and its cache has
+    `cache_init`'s keys, shapes and dtypes (S = 33 wraps danube's ring
+    of 16 and pads the SSD's chunks)."""
+    cfg = registry.get_smoke_config(MIXER_ARCHS[kind])
+    assert kind in {t.split("+")[0] for t in cfg.layer_types()}
+    mixer = L.MIXERS[kind]
+    params = mixer.init(torch.Generator().manual_seed(0), cfg, (), "cpu")
+    x = torch.randn(B, S, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        y, cache = mixer.prefill(params, cfg, x, S + 7)
+        assert torch.equal(y, mixer.train(params, cfg, x))
+    want = mixer.cache_init(cfg, B, S + 7, (), "cpu")
+    assert sorted(cache) == sorted(want)
+    for key, t in want.items():
+        assert (cache[key].shape, cache[key].dtype) == (t.shape, t.dtype)
+
+
+def test_mla_prefill_computes_the_latent_once_a_layer(monkeypatch):
+    """The cache and the attention share one KV latent."""
+    cfg = registry.get_smoke_config("deepseek-v3-671b")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    latent, calls = L._mla_kv_latent, []
+
+    def counting(*args):
+        calls.append(args[2].shape)
+        return latent(*args)
+    monkeypatch.setattr(L, "_mla_kv_latent", counting)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        lm.prefill_step_fn(cfg, capacity=S + 7)(params, {"tokens": tokens})
+    assert calls == [(B, S, cfg.d_model)] * cfg.num_layers
+
+
+@pytest.mark.parametrize("elem,message", [
+    ("mamba+mlp", "unknown mixer 'mamba'"),
+    ("attn+glu", "unknown ffn 'glu'")])
+def test_unknown_mixer_or_ffn_raises_at_init_params(elem, message):
+    cfg = dataclasses.replace(registry.get_smoke_config("yi-9b"),
+                              stacks=(Stack((elem,), 1),))
+    with pytest.raises(ValueError, match=message):
+        lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
